@@ -1,13 +1,14 @@
 #!/usr/bin/env python
-"""Recall A/B of k-means|| seeding vs uniform-random at the Deep1B shape
-(round-4 verdict item 6's Done criterion): 2M x 96, kc=2^18, m=16,
-two-level coarse — the regime where sequential k-means++ is infeasible and
-round 4 silently downgraded to random.
+"""Recall A/B of k-means|| seeding vs uniform-random at the Deep1B shape:
+2M x 96, kc=2^18, m=16, two-level coarse — the regime where sequential
+k-means++ is infeasible.
 
 Builds one index per seeding mode in its own subprocess (seeding is the
-only difference: init is forced via IVFADC_SEED_INIT, a hook this script
-monkeypatches in), then measures recall@10 on matched queries against
+only difference: this script monkeypatches the init), then measures recall@10 on matched queries against
 exact GT over a 200k-row slice, plus QPS at the standard probe dial.
+
+The parent process never imports JAX, so each child has the card to
+itself (one process per card).
 
 Usage: python benchmarks/ab_seeding.py [--n 2000000] [--nq 2048]
 """
@@ -25,13 +26,15 @@ CHILD = r'''
 import os, sys, time
 import numpy as np
 sys.path.insert(0, {root!r})
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join({root!r}, ".cache", "jax_compile"))
 import jax
+from ivfadc_tpu.utils.compile_cache import enable_compile_cache
+from ivfadc_tpu.utils.timing import mean_time, require_gpu
+require_gpu("child")
+enable_compile_cache()
 import jax.numpy as jnp
 
-# force the seeding mode: "parallel" = the round-5 default beyond
-# _PP_MAX_K (k-means||); "random" = the round-4 silent downgrade
+# force the seeding mode: "parallel" = the default beyond _PP_MAX_K
+# (k-means||); "random" = uniform random seeds
 mode = {mode!r}
 if mode == "random":
     from ivfadc_tpu.ops import kmeans as km
@@ -48,7 +51,6 @@ if mode == "random":
 from ivfadc_tpu import IVFADCIndex
 from ivfadc_tpu.utils.datasets import synthetic_clustered_device
 from ivfadc_tpu.utils.evaluation import brute_force_topk, recall_at_r
-from ivfadc_tpu.utils.timing import roundtrip_latency, true_time
 
 n, d, kc, m, kq = {n}, 96, 262144, 16, 256
 nq, w, k = {nq}, 32, 10
@@ -70,9 +72,7 @@ ids = np.asarray(ids)
 # count only hits that land inside the GT slice
 ids_sl = np.where(ids < 200_000, ids, -1)
 rec = recall_at_r(ids_sl, gt_i, 10)
-rpc = roundtrip_latency()
-t = true_time(lambda i: idx._device_search(qdev + 1e-4 * i, k, w),
-              reps=6, warm=2, baseline=rpc)
+t = mean_time(lambda: idx._device_search(qdev, k, w), reps=6, warm=2)
 print(f"RESULT mode={{mode}} recall10={{rec:.4f}} ms={{t*1e3:.2f}} "
       f"qps={{nq/t:.0f}}", flush=True)
 '''

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
-"""Deep1B-shard single-chip profile: 2M x 96, kc=2^18, m=16, two-level coarse.
+"""Deep1B-shard single-card profile: 2M x 96, kc=2^18, m=16, two-level
+coarse (~8-row cells).
 
-A/Bs the tiny-cell gathered engine (ops/gather_scan.py) against the
-per-probe scan kernel on the regime it was built for (~8-row cells, the
-ungrouped engine). Each mode runs in its own subprocess (a Mosaic compile
-error can poison the TPU client; the runtime memoizes identical calls —
-true_time varies inputs per rep).
+Times the LUT scan and the dense gathered scan (ops/gather_scan.py) on
+this tiny-cell regime. Each mode runs in its own subprocess; the parent
+never imports JAX, so each child has the card to itself.
 
 Usage: python benchmarks/deep1b_shape.py [--nq 4096] [--w 32] [--reps 8]
 """
@@ -23,13 +22,14 @@ CHILD = r'''
 import os, sys, time
 import numpy as np
 sys.path.insert(0, {root!r})
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join({root!r}, ".cache", "jax_compile"))
 import jax
+from ivfadc_tpu.utils.compile_cache import enable_compile_cache
+from ivfadc_tpu.utils.timing import mean_time, require_gpu
+require_gpu("child")
+enable_compile_cache()
 import jax.numpy as jnp
 from ivfadc_tpu import IVFADCIndex
 from ivfadc_tpu.utils.datasets import synthetic_clustered_device
-from ivfadc_tpu.utils.timing import roundtrip_latency, true_time
 
 n, d, kc, m, kq = 2_000_000, 96, 262144, 16, 256
 nq, w, k = {nq}, {w}, 10
@@ -44,26 +44,20 @@ else:
                             kmeanspp_sample=65536)
     print(f"build: {{time.time() - t0:.1f}}s", flush=True)
     idx.save(cache)
-gather = {gather!r}
-if gather == "off":
-    import dataclasses
-    idx.config = dataclasses.replace(idx.config, scan_gather_win=0)
-    idx._gather_plan_cache = None
-print("gather plan:", idx._gather_plan(), flush=True)
+mode = {mode!r}
+import dataclasses
+idx.config = dataclasses.replace(idx.config, scan_mode=mode)
 key = jax.random.PRNGKey(1)
 sel = jax.random.randint(key, (nq,), 0, n)
 qdev = base[sel] + 0.05 * jax.random.normal(key, (nq, d), jnp.float32)
 qdev = jax.block_until_ready(qdev)
-rpc = roundtrip_latency()
-# vary inputs per rep: identical pure calls can be memoized by the runtime
-t = true_time(lambda i: idx._device_search(qdev + 1e-4 * i, k, w),
-              reps={reps}, warm=2, baseline=rpc)
-print(f"RESULT mode={{gather}} ms={{t*1e3:.2f}} qps={{nq/t:.0f}}", flush=True)
+t = mean_time(lambda: idx._device_search(qdev, k, w), reps={reps}, warm=2)
+print(f"RESULT mode={{mode}} ms={{t*1e3:.3f}} qps={{nq/t:.0f}}", flush=True)
 '''
 
 
-def run(gather: str, nq: int, w: int, reps: int) -> None:
-    code = CHILD.format(root=ROOT, nq=nq, w=w, reps=reps, gather=gather)
+def run(mode: str, nq: int, w: int, reps: int) -> None:
+    code = CHILD.format(root=ROOT, nq=nq, w=w, reps=reps, mode=mode)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=3600)
     print(r.stdout.strip())
@@ -77,10 +71,10 @@ def main():
     ap.add_argument("--nq", type=int, default=4096)
     ap.add_argument("--w", type=int, default=32)
     ap.add_argument("--reps", type=int, default=8)
-    ap.add_argument("--modes", default="on,off")
+    ap.add_argument("--modes", default="lut,dense")
     args = ap.parse_args()
     for mode in args.modes.split(","):
-        print(f"[gather={mode}]", flush=True)
+        print(f"[scan_mode={mode}]", flush=True)
         run(mode, args.nq, args.w, args.reps)
 
 

@@ -1,11 +1,11 @@
 """NumPy oracle of the reference's exact search algorithm.
 
-Julia isn't installed in this environment, so (per BASELINE.md) this is the
+Julia isn't installed in this environment, so this is the
 executable stand-in for JuliaNeighbors/IVFADC.jl: a faithful single-core
 reimplementation of `knn_search` (/root/reference/src/index.jl:204-258) —
 brute-force coarse scan + per-probe ADC table build + serial posting scan,
 one query at a time, with the reference's "coarse_dist + sum(table)" score
-(:242-246). It operates on the SAME trained arrays as the TPU index, so
+(:242-246). It operates on the SAME trained arrays as the JAX index, so
 recall parity isolates search semantics and QPS ratio isolates speed.
 
 Vectorized per-query with NumPy, so its inner loops run at C speed — a fair

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Honest build-phase timing: each phase ends with a forced scalar fetch so
-tunneled runtimes can't smear work across phases. Distinguishes compile time
-(first call) from steady-state by running key jits twice.
+"""Build-phase timing: each phase ends with a forced scalar fetch so no
+phase's work runs into the next. Distinguishes compile time (first call)
+from steady-state by running key jits twice.
 
 Usage: python benchmarks/profile_build.py [--n 1000000] [--no-cache]
 """
@@ -17,11 +17,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if "--no-cache" not in sys.argv:
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))),
-                              ".cache", "jax_compile"))
 
 
 def fetch(x):
@@ -44,6 +39,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from ivfadc_tpu.utils.compile_cache import enable_compile_cache
+    from ivfadc_tpu.utils.timing import require_gpu
+    require_gpu(os.path.basename(__file__))
+    if not args.no_cache:
+        enable_compile_cache()
     from ivfadc_tpu.config import IVFADCConfig
     from ivfadc_tpu.ops import pq as pq_ops
     from ivfadc_tpu.ops.kmeans import kmeans
@@ -89,7 +89,7 @@ def main():
     t0 = time.time()
     assignments_h = np.asarray(cres.assignments)
     codes_h = np.asarray(codes)
-    print(f"D2H assign+codes   : {time.time()-t0:7.1f}s "
+    print(f"to host assign+codes: {time.time()-t0:6.1f}s "
           f"({(assignments_h.nbytes+codes_h.nbytes)/1e6:.0f}MB)")
 
     t0 = time.time()

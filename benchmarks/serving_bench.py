@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Serving-layer benchmark: request-coalescing vs direct dispatch.
 
-Measures, on the current backend:
+Measures, on the GPU:
   1. closed-loop p50/p99 single-request latency through BatchingSearcher
      (client thread waits for each result) vs direct search_padded(B=1);
   2. open-loop throughput with C concurrent client threads submitting
      back-to-back — how many requests/s the coalescer sustains and how
      large its dispatched batches actually get.
 
-Sizes shrink automatically on CPU. Env: IVFADC_SERVE_N, IVFADC_SERVE_CLIENTS.
+Env: IVFADC_SERVE_N, IVFADC_SERVE_CLIENTS.
 """
 
 from __future__ import annotations
@@ -21,10 +21,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".cache", "jax_compile"))
 
 
 def main():
@@ -33,10 +29,13 @@ def main():
     from ivfadc_tpu import IVFADCIndex, BatchingSearcher
     from ivfadc_tpu.utils.datasets import synthetic_clustered_device
 
-    on_accel = jax.default_backend() != "cpu"
-    n = int(os.environ.get("IVFADC_SERVE_N", 1_000_000 if on_accel else 50_000))
+    from ivfadc_tpu.utils.compile_cache import enable_compile_cache
+    from ivfadc_tpu.utils.timing import require_gpu
+    require_gpu(os.path.basename(__file__))
+    enable_compile_cache()
+    n = int(os.environ.get("IVFADC_SERVE_N", 1_000_000))
     clients = int(os.environ.get("IVFADC_SERVE_CLIENTS", 16))
-    k, w, kc, m = 10, 8, 1024 if on_accel else 64, 8
+    k, w, kc, m = 10, 8, 1024, 8
     d = 128
 
     base = synthetic_clustered_device(n, d, seed=0)
@@ -50,7 +49,6 @@ def main():
     # a real but amortized event whose cost on this remote-compile runtime
     # (regrow + program reload, measured ~6 s) would drown the
     # steady-state serving-under-mutation signal this phase measures.
-    # The grow event itself is reported in RESULTS.md.
     pushes = np.asarray(synthetic_clustered_device(2048, d, seed=7))
     index.search_padded(queries[:1], k, w)            # warm compile (B=1)
     index.search_padded(queries[:8], k, w)
@@ -78,7 +76,7 @@ def main():
           f"coalesced p50={s50:.2f} p99={s99:.2f}")
 
     # 2. open-loop: C clients hammer the searcher for a fixed request count
-    per_client = 2048 // clients if on_accel else 256 // clients
+    per_client = 2048 // clients
     with BatchingSearcher(index, max_batch=1024, max_wait_ms=2.0) as s:
         lat = [[] for _ in range(clients)]
 
@@ -104,8 +102,8 @@ def main():
         open_loop_mean_batch = s.stats.queries / max(1, s.stats.batches)
     # 3. mutation under load: clients keep submitting while a writer thread
     #    interleaves push_batch/delete through the searcher's write lock
-    #    (round-4 epoch contract: dispatches never see a half-mutated store)
-    mut_rounds = 8 if on_accel else 3
+    #    (epoch contract: dispatches never see a half-mutated store)
+    mut_rounds = 8
     # warm the mutation-path compiles OUTSIDE the measured window (the
     # search warmup above does the same for dispatches), with data from
     # the SAME distribution as the measured rounds — an off-distribution
@@ -175,7 +173,7 @@ def main():
            "mut_serving_p50_ms": round(m50, 2),
            "mut_serving_p99_ms": round(m99, 2),
            "clients": clients, "n": n,
-           "backend": jax.default_backend()})
+           "device": jax.devices()[0].device_kind})
 
 
 if __name__ == "__main__":

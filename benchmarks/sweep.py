@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Recall/QPS curves vs nprobe (BASELINE.md: "nprobe sweep 1-64").
+"""Recall/QPS curves vs nprobe (sweep 1-64), on the GPU.
 
 Also covers the GIST1M-shape high-dim config (960-dim, m=16/32) via
 IVFADC_SWEEP_CONFIG=gist. Prints one JSON line per nprobe point.
@@ -15,10 +15,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".cache", "jax_compile"))
 
 
 def main():
@@ -29,22 +25,24 @@ def main():
     from ivfadc_tpu.utils.evaluation import brute_force_topk, recall_at_r
 
     cfg_name = os.environ.get("IVFADC_SWEEP_CONFIG", "sift")
-    on_accel = jax.default_backend() != "cpu"
+    from ivfadc_tpu.utils.compile_cache import enable_compile_cache
+    from ivfadc_tpu.utils.timing import require_gpu
+    require_gpu(os.path.basename(__file__))
+    enable_compile_cache()
     if cfg_name == "gist":
         d, m = 960, int(os.environ.get("IVFADC_BENCH_M", 16))
-        n = int(os.environ.get("IVFADC_BENCH_N", 1_000_000 if on_accel else 50_000))
+        n = int(os.environ.get("IVFADC_BENCH_N", 1_000_000))
     else:
         d, m = 128, 8
-        n = int(os.environ.get("IVFADC_BENCH_N", 1_000_000 if on_accel else 100_000))
+        n = int(os.environ.get("IVFADC_BENCH_N", 1_000_000))
     kc = int(os.environ.get("IVFADC_BENCH_KC", 1024))
     nq = int(os.environ.get("IVFADC_BENCH_NQ", 1_000))
-    batch = int(os.environ.get("IVFADC_BENCH_BATCH",
-                               16384 if on_accel else 1024))
+    batch = int(os.environ.get("IVFADC_BENCH_BATCH", 16384))
     topk = 10
 
     import jax.numpy as jnp
     from ivfadc_tpu.utils.datasets import synthetic_clustered_device
-    from ivfadc_tpu.utils.timing import roundtrip_latency, true_time
+    from ivfadc_tpu.utils.timing import mean_time
 
     based = synthetic_clustered_device(n, d, seed=0)
     key = jax.random.PRNGKey(1)
@@ -59,14 +57,12 @@ def main():
     print(json.dumps({"config": cfg_name, "n": n, "d": d, "m": m,
                       "memory_stats": ms}), file=sys.stderr)
     _, gt_i = brute_force_topk(based, qdev[:nq], topk)
-    bl = roundtrip_latency()
     for nprobe in (1, 2, 4, 8, 16, 32, 64):
         ids, _ = idx.search_padded(queries, topk, w=nprobe)
         rec = recall_at_r(ids, gt_i, topk)
-        t = true_time(
-            lambda i: idx._device_search(qdev[:batch] + 1e-6 * i,
-                                         topk, nprobe),
-            reps=10, warm=2, baseline=bl)
+        t = mean_time(
+            lambda: idx._device_search(qdev[:batch], topk, nprobe),
+            reps=10, warm=2)
         qps = batch / t
         print(json.dumps({"config": cfg_name, "n": n, "d": d, "m": m,
                           "kc": kc, "nprobe": nprobe,

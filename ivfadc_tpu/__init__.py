@@ -1,6 +1,6 @@
-"""ivfadc_tpu — a TPU-native IVFADC approximate-nearest-neighbor engine.
+"""ivfadc_tpu — an IVFADC approximate-nearest-neighbor engine in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability surface of
+Built from scratch in JAX/XLA with the capability surface of
 JuliaNeighbors/IVFADC.jl (reference exports at /root/reference/src/IVFADC.jl:16-20):
 `IVFADCIndex`, `knn_search`, `delete_from_index`, `save_ivfadc_index`,
 `load_ivfadc_index`, plus the Base-method extensions push!/pushfirst!/pop!/

@@ -23,9 +23,8 @@ DTYPE_TO_BITS = {
     "uint64": 64,
 }
 
-# Device-side id representation cap: search kernels stream/emit ids as
-# int32 (ids2d rows, fold payloads, epilogue masks treat negatives as
-# padding), so a PLAIN index's external ids must stay below 2^31 regardless
+# Device-side id representation cap: search programs carry ids as int32
+# (epilogue masks treat negatives as padding), so a PLAIN index's external ids must stay below 2^31 regardless
 # of how wide `index_dtype` is on the host (uint64 storage is fine; ids
 # above the cap would wrap negative on device and silently vanish from
 # results). Sharded views lift the cap with wide-id mode: device arrays
@@ -46,7 +45,7 @@ def device_id_cap() -> int:
 VALID_QUANTIZATION_METHODS = ("pq", "opq")
 # "naive" = brute-force matmul coarse scan; "hnsw" is accepted for API parity
 # with the reference (/root/reference/src/defaults.jl:7) and maps to the
-# TPU-friendly two-level coarse quantizer ("two_level" is its native name).
+# matmul-based two-level coarse quantizer ("two_level" is its native name).
 VALID_COARSE_QUANTIZERS = ("naive", "hnsw", "two_level")
 
 
@@ -83,7 +82,8 @@ class IVFADCConfig:
       coarse_maxiter       <- coarse_maxiter (25)
       quantization_maxiter <- quantization_maxiter (25)
       index_dtype          <- index_type    (UInt32)
-    TPU-specific additions: seed, opq_iters, block sizes, slack factor.
+    Additions with no reference counterpart: seed, opq_iters, block sizes,
+    slack factor, scan mode.
     """
 
     kc: int = 2
@@ -97,7 +97,7 @@ class IVFADCConfig:
     quantization_maxiter: int = 25
     index_dtype: str = "uint32"
 
-    # TPU-build specific knobs (no reference counterpart).
+    # Knobs with no reference counterpart.
     seed: int = 0
     coarse_n_groups: int = 0        # two-level coarse: number of centroid
                                     # groups (0 = ceil(sqrt(kc)))
@@ -109,66 +109,26 @@ class IVFADCConfig:
     cell_slack: float = 1.25        # padded-CSR over-allocation factor per cell
     kmeanspp_sample: int = 0        # 0 = seed k-means++ on all points; else subsample cap
     quantization_sample: int = 0    # 0 = train PQ codebooks on all residuals
-                                    # (auto-capped at 2^20 for larger builds:
-                                    # the (m, n, d/m) training layout pads
-                                    # d/m to 128 lanes and would overflow
-                                    # HBM); else train on a uniform subsample
-                                    # of this many (encode always runs on
-                                    # everything)
+                                    # (auto-capped at 2^20 for larger
+                                    # builds); else train on a uniform
+                                    # subsample of this many (encode always
+                                    # runs on everything)
     score_mode: str = "reference"   # "reference": coarse_dist + sum(ADC table)
                                     #   (parity with /root/reference/src/index.jl:242-246)
                                     # "pure": sum(ADC table) only (classic IVFADC estimator)
-    scan_mode: str = "auto"         # "dense": Pallas kernel over resident bf16
-                                    #   decoded residuals (TPU fast path);
-                                    # "lut": XLA table-lookup scan (memory-lean,
-                                    #   any additive metric);
-                                    # "auto": dense on TPU when the metric
-                                    #   supports it, lut otherwise
-    scan_chunk: int = 1024          # rows per DMA chunk in the dense kernel
-    scan_pb: int = 64               # probes per kernel tile (query grouping);
-                                    # best measured on v5e at SIFT1M shape
-                                    # (benchmarks/sweep_kernel.py)
-    scan_fold_lanes: int = 128      # fold-merge candidate-buffer width per
-                                    # probe (128-multiple dividing scan_chunk);
-                                    # wider cuts fold collisions but costs
-                                    # HBM writes — measured recall delta at
-                                    # 128 vs exact merge is noise-level
-                                    # (SIFT1M-shape, k=10, ~1.2k-posting cells)
+    scan_mode: str = "auto"         # "lut": table-lookup scan over the PQ
+                                    #   codes (memory-lean, any additive
+                                    #   metric);
+                                    # "dense": gathered scan over a resident
+                                    #   decoded-residual cache
+                                    #   (ops/gather_scan.py);
+                                    # "auto": lut (faster on the H100 at the
+                                    #   SIFT1M shape, PERF.md)
     scan_cache: str = "auto"        # decoded-residual cache dtype for the
                                     # dense scan: "bf16" (2 B/dim) or "int8"
-                                    # (1 B/dim + per-column scale — halves
-                                    # the DMA traffic that bounds the scan;
+                                    # (1 B/dim + per-column scale; the
                                     # quantization error is the same order
                                     # as bf16 rounding); "auto": int8
-    cell_align: int = 0             # cell capacity alignment in rows: 0 auto
-                                    # (128 when kc <= 16384 — enables the
-                                    # grouped kernel's in-kernel id emission
-                                    # — else 8, the tight Mosaic sublane
-                                    # minimum for huge-kc/tiny-cell indexes)
-    scan_gather_win: int = 0        # tiny-cell engine threshold (rows): in
-                                    # the huge-kc regime, probes of cells
-                                    # whose capacity fits this window are
-                                    # scored by one XLA row-gather + batched
-                                    # MXU contraction (ops/gather_scan.py)
-                                    # instead of >=128-row DMA chunks that
-                                    # would be >90% padding; bigger cells
-                                    # stay on the scan kernel and the two
-                                    # candidate lists merge exactly.
-                                    # 0 (default) disables: the round-4
-                                    # hardware A/B at the engine's flagship
-                                    # Deep1B shape measured the hybrid at
-                                    # 160 ms vs 85 ms scan-only
-                                    # (reproducibly; RESULTS.md) — opt in
-                                    # per deployment via autotune's
-                                    # gather_wins sweep or this knob.
-    scan_merge: str = "auto"        # in-kernel candidate upkeep:
-                                    # "exact": k min-extract passes per chunk
-                                    #   (true per-probe top-k);
-                                    # "fold": per-lane running min (TPU-KNN
-                                    #   partial reduce) — ~10x less VPU work,
-                                    #   exact for cells <= 128 postings,
-                                    #   sub-percent recall loss beyond;
-                                    # "auto": fold
 
     def __post_init__(self):
         if self.quantization_method not in VALID_QUANTIZATION_METHODS:
@@ -189,20 +149,6 @@ class IVFADCConfig:
         if self.scan_cache not in ("auto", "bf16", "int8"):
             raise ValueError(f"scan_cache must be 'auto', 'bf16' or 'int8', "
                              f"got {self.scan_cache!r}")
-        if self.scan_merge not in ("auto", "exact", "fold"):
-            raise ValueError(f"scan_merge must be 'auto', 'exact' or 'fold', "
-                             f"got {self.scan_merge!r}")
-        if (self.scan_fold_lanes % 128 != 0
-                or self.scan_chunk % self.scan_fold_lanes != 0):
-            raise ValueError(
-                f"scan_fold_lanes must be a 128-multiple dividing scan_chunk, "
-                f"got {self.scan_fold_lanes} (chunk {self.scan_chunk})")
-        if self.scan_gather_win < 0:
-            raise ValueError(
-                f"scan_gather_win must be >= 0, got {self.scan_gather_win}")
-        if self.cell_align not in (0, 8, 128):
-            raise ValueError(
-                f"cell_align must be 0 (auto), 8 or 128, got {self.cell_align}")
 
     def validate_for_data(self, n: int, d: int, *,
                           sharded: bool = False) -> None:

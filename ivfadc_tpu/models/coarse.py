@@ -5,10 +5,10 @@ The reference defines an AbstractCoarseQuantizer with two implementations
   * NaiveQuantizer — brute-force colwise distance over all kc centroids (:18-48)
   * HNSWQuantizer  — graph ANN over the centroids (:58-93)
 
-On TPU the brute-force scan IS the fast path: distances to all kc centroids
-are a single (B, d) x (d, kc) matmul on the MXU + `lax.top_k`, which beats
-pointer-chasing graph traversal up to very large kc (SURVEY §2.2). So:
-  * NaiveCoarseQuantizer  — the matmul scan (default).
+Here the brute-force scan is one (B, d) x (d, kc) matmul + a top-k,
+which beats pointer-chasing graph traversal up to very large kc (SURVEY
+§2.2). So:
+  * NaiveCoarseQuantizer  — the matmul scan (default), exact.
   * TwoLevelCoarseQuantizer — the ":hnsw" replacement for huge kc (~2^18,
     Deep1B-scale): cluster the kc centroids into g groups, probe the top
     groups, then scan only their members. Sublinear in kc, still all
@@ -28,13 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ivfadc_tpu.ops.metrics import Metric, get_metric
-
-# The extract/rank-engine knobs arrive as `search(..., extract=,
-# rank_engine=)` kwargs threaded from the jitted entry points' static args
-# (models/index.py reads the IVFADC_* env at every dispatch), so in-process
-# toggles retrace correctly. Defaults are the conservative production
-# engines.
+from ivfadc_tpu.ops.metrics import Metric
 
 
 @jax.tree_util.register_pytree_node_class
@@ -61,19 +55,11 @@ class NaiveCoarseQuantizer:
         return (f"NaiveCoarseQuantizer({self.metric.name}), "
                 f"{self.dim}×{self.kc} cluster centres")
 
-    def search(self, queries: jax.Array, w: int, *, extract: bool = False,
-               rank_engine: str | None = None
+    def search(self, queries: jax.Array, w: int
                ) -> Tuple[jax.Array, jax.Array]:
         """(B, d) queries -> (cells (B, w) int32, dists (B, w) f32). Jittable.
-        extract/rank_engine are accepted for interface parity with the
-        two-level quantizer; the brute-force scan has no use for them."""
+        Exact: the metric's pairwise runs at full float32 precision."""
         from ivfadc_tpu.ops.topk import topk_lastdim
-        if self.metric.name in ("sqeuclidean", "euclidean"):
-            # fused distances+top-w kernel: the (B, kc) matrix stays in VMEM
-            from ivfadc_tpu.ops.coarse_scan import coarse_topw
-            fused = coarse_topw(queries, self.centroids, w)
-            if fused is not None:
-                return fused
         dist = self.metric.pairwise(queries, self.centroids)    # (B, kc)
         dists, cells = topk_lastdim(dist, w)
         return cells.astype(jnp.int32), dists
@@ -91,74 +77,31 @@ class NaiveCoarseQuantizer:
 class TwoLevelCoarseQuantizer:
     """Two-level coarse scan standing in for the reference's :hnsw option
     (/root/reference/src/coarsequantizers.jl:58-93): same role (sublinear
-    coarse search over many centroids), TPU-native mechanics (two stacked
+    coarse search over many centroids), different mechanics (two stacked
     scans instead of graph traversal). Like HNSW it is approximate: the
     probed cells are the best within the gp nearest groups.
 
-    Two stage-2 engines, picked by kc:
-      * small kc (<= _GATHER_MAX): gather the candidate centroid vectors and
-        score them exactly in f32 — cheap when gp*gmax is modest;
-      * large kc (Deep1B-style 2^18): the gather would materialize a
-        (B, gp*gmax, d) tensor (GBs); instead the group-major centroid table
-        is scanned by the same grouped Pallas kernel as the posting scan
-        (groups play "cells", centroids play "postings", bf16 scores).
+    Stage 2 gathers the member centroids of the probed groups and scores
+    them exactly, in query chunks so the (chunk, gp*gmax, d) gather stays
+    bounded at any kc.
     """
 
     centroids: jax.Array        # (kc, d) float32 — the actual cells
     group_centers: jax.Array    # (g, d) float32
     members: jax.Array          # (g, gmax) int32, padded with -1
-    csr_offsets: jax.Array      # (g,) int32 — 128-aligned slot starts
-    csr_sizes: jax.Array        # (g,) int32 — live centroids per group
-    cent_scan: jax.Array        # (slots_pad, d_pad) int8 group-major centroids
-    cent_scale: jax.Array       # (d_pad,) f32 per-column dequant scales
-    perm2d: jax.Array           # (slots_pad/128, 128) i32 — kernel id stream
     metric: Metric              # static
     n_probe_groups: int         # static
 
     kind = "two_level"
-    _GATHER_MAX = 4096
 
     @classmethod
     def create(cls, centroids, group_centers, members, metric,
                n_probe_groups: int) -> "TwoLevelCoarseQuantizer":
-        """Build the derived CSR/scan arrays from (centroids, members) —
-        the only arrays persisted (utils/persistence.py)."""
-        centroids = jnp.asarray(centroids, jnp.float32)
-        members_h = np.asarray(members)
-        g = members_h.shape[0]
-        counts = (members_h >= 0).sum(axis=1).astype(np.int64)
-        # 128-aligned group starts: lets the grouped scan kernel stream the
-        # centroid-id rows (perm2d) and emit cell ids directly — the
-        # post-scan perm[pos] scalar gather (B*w elements from a MB-sized
-        # table) was a measured multi-ms cost at Deep1B scale
-        caps = np.maximum(128, ((counts + 127) // 128) * 128)
-        offsets = np.zeros(g, np.int64)
-        np.cumsum(caps[:-1], out=offsets[1:])
-        d = centroids.shape[1]
-        d_pad = ((d + 127) // 128) * 128
-        guard = 1024 + 128                                # max chunk + lane
-        total = int(offsets[-1] + caps[-1]) + guard
-        total = ((total + 127) // 128) * 128
-        perm = np.full(total, -1, np.int32)
-        # vectorized CSR fill (no Python loop over g — large-kc two-level
-        # builds have thousands of groups): member j of group gi lands at
-        # offsets[gi] + rank-of-j-among-live-members
-        live_r, live_c = np.nonzero(members_h >= 0)
-        # rows may hold -1 gaps anywhere, so rank = running live count per row
-        rank = (np.cumsum(members_h >= 0, axis=1) - 1)[live_r, live_c]
-        perm[offsets[live_r] + rank] = members_h[live_r, live_c]
-        cent = np.zeros((total, d_pad), np.float32)
-        live = perm >= 0
-        cent[live, :d] = np.asarray(centroids)[perm[live]]
-        # int8 table + per-column scales: halves the stage-2 DMA at
-        # bf16-equivalent precision (same scheme as the posting-scan cache)
-        scale = np.maximum(np.abs(cent).max(axis=0) / 127.0, 1e-12)             .astype(np.float32)
-        cent_q = np.clip(np.round(cent / scale[None, :]), -127, 127)             .astype(np.int8)
-        return cls(centroids, jnp.asarray(group_centers, jnp.float32),
-                   jnp.asarray(members_h), jnp.asarray(offsets, jnp.int32),
-                   jnp.asarray(counts, jnp.int32),
-                   jnp.asarray(cent_q), jnp.asarray(scale),
-                   jnp.asarray(perm.reshape(-1, 128)), metric,
+        """From (centroids, group centers, members) — the arrays persisted
+        by utils/persistence.py."""
+        return cls(jnp.asarray(centroids, jnp.float32),
+                   jnp.asarray(group_centers, jnp.float32),
+                   jnp.asarray(np.asarray(members), jnp.int32), metric,
                    n_probe_groups)
 
     @property
@@ -176,71 +119,38 @@ class TwoLevelCoarseQuantizer:
                 f"{self.group_centers.shape[0]} groups "
                 f"(gp={self.n_probe_groups})")
 
-    def search(self, queries: jax.Array, w: int, *, extract: bool = False,
-               rank_engine: str | None = None
+    def search(self, queries: jax.Array, w: int
                ) -> Tuple[jax.Array, jax.Array]:
         from ivfadc_tpu.ops.topk import topk_lastdim
+        B = queries.shape[0]
         gp = min(self.n_probe_groups, self.group_centers.shape[0])
         gdist = self.metric.pairwise(queries, self.group_centers)   # (B, g)
         _, gids = topk_lastdim(gdist, gp)                           # (B, gp)
-        # The Pallas stage-2 scan scores via the |q|^2 - 2q.c + |c|^2
-        # decomposition, valid only for the (sq)euclidean pairwise; other
-        # metrics stay on the exact gather path at any kc (memory-heavy for
-        # huge kc, but correct — huge-kc + exotic-coarse-metric is a corner).
-        scan_ok = self.metric.name in ("sqeuclidean", "euclidean")
-        if self.kc <= self._GATHER_MAX or not scan_ok:
-            cand = self.members[gids].reshape(queries.shape[0], -1)
-            valid = cand >= 0
-            cvecs = self.centroids[jnp.where(valid, cand, 0)]       # (B, C, d)
-            cdist = jax.vmap(self.metric.pairwise)(
-                queries[:, None, :], cvecs)[:, 0, :]
-            cdist = jnp.where(valid, cdist, jnp.inf)
-            w_eff = min(w, cand.shape[1])   # fewer candidates than w: pad
-            dists, pos = topk_lastdim(cdist, w_eff)
-            cells = jnp.take_along_axis(cand, pos, axis=1)
-            cells = jnp.where(jnp.isfinite(dists), cells, 0)
-            if w_eff < w:
-                cells = jnp.pad(cells, ((0, 0), (0, w - w_eff)))
-                dists = jnp.pad(dists, ((0, 0), (0, w - w_eff)),
-                                constant_values=jnp.inf)
-            return cells.astype(jnp.int32), dists
-        return self._scan_stage2(queries, gids, gp, w, extract=extract,
-                                 rank_engine=rank_engine)
+        n_cand = gp * self.members.shape[1]
+        w_eff = min(w, n_cand)      # fewer candidates than w: pad below
+        # chunk queries so the gathered (chunk, C, d) f32 block stays
+        # within ~256 MB
+        bc = max(1, min(B, (1 << 28) // max(1, n_cand * self.dim * 4)))
+        nch = -(-B // bc)
 
-    def _scan_stage2(self, queries, gids, gp: int, w: int, *,
-                     extract: bool = False, rank_engine: str | None = None):
-        """Stage 2 via the grouped Pallas scan (sqeuclidean decomposition:
-        |q-c|^2 = |q|^2 - 2 q.c + |c|^2, bf16 matmuls, f32 accumulate)."""
-        from ivfadc_tpu.ops.pallas_scan import grouped_dense_scan
-        from ivfadc_tpu.ops.topk import topk_lastdim_payload
-        B, d = queries.shape
-        chunk = 512
-        v = jnp.broadcast_to((-2.0 * queries)[:, None, :], (B, gp, d))
-        base = jnp.broadcast_to(
-            jnp.sum(queries * queries, axis=1)[:, None], (B, gp))
-        k_out = min(w, 128)
-        # in-kernel per-probe top-w extraction (see ops/pallas_scan.py):
-        # halves the probe-order row gather and shrinks this merge from
-        # gp*nf to gp*w candidates — exact vs the buffered path
-        extract_k = k_out if 2 * k_out <= 128 and extract else 0
-        out_d, out_p = grouped_dense_scan(
-            gids, self.csr_offsets, self.csr_sizes, v, base, self.cent_scan,
-            self.cent_scale, self.perm2d,
-            kc=self.group_centers.shape[0], k_out=k_out, chunk=chunk,
-            norm_coef=1.0, pb=64, merge="fold", nf=128,
-            interpret=jax.default_backend() != "tpu",
-            extract_k=extract_k, rank_engine=rank_engine)
-        nf = out_d.shape[-1]
-        flat_d = out_d.reshape(B, gp * nf)
-        flat_p = out_p.reshape(B, gp * nf)   # emitted CELL ids (perm stream)
-        w_eff = min(w, gp * nf)
-        if flat_d.shape[1] % 128 != 0:
-            pad = 128 - flat_d.shape[1] % 128
-            flat_d = jnp.pad(flat_d, ((0, 0), (0, pad)),
-                             constant_values=jnp.inf)
-            flat_p = jnp.pad(flat_p, ((0, 0), (0, pad)), constant_values=-1)
-        dists, cells = topk_lastdim_payload(flat_d, flat_p, w_eff)
-        cells = jnp.where(jnp.isfinite(dists) & (cells >= 0), cells, 0)
+        def stage2(args):
+            q, g = args                                 # (bc, d), (bc, gp)
+            cand = self.members[g].reshape(bc, n_cand)
+            valid = cand >= 0
+            cvecs = self.centroids[jnp.where(valid, cand, 0)]  # (bc, C, d)
+            cdist = jax.vmap(self.metric.pairwise)(q[:, None, :],
+                                                   cvecs)[:, 0, :]
+            cdist = jnp.where(valid, cdist, jnp.inf)
+            dists, pos = topk_lastdim(cdist, w_eff)
+            return jnp.take_along_axis(cand, pos, axis=1), dists
+
+        pad = nch * bc - B
+        cells, dists = jax.lax.map(stage2, (
+            jnp.pad(queries, ((0, pad), (0, 0))).reshape(nch, bc, -1),
+            jnp.pad(gids, ((0, pad), (0, 0))).reshape(nch, bc, gp)))
+        cells = cells.reshape(nch * bc, w_eff)[:B]
+        dists = dists.reshape(nch * bc, w_eff)[:B]
+        cells = jnp.where(jnp.isfinite(dists), cells, 0)
         if w_eff < w:
             cells = jnp.pad(cells, ((0, 0), (0, w - w_eff)))
             dists = jnp.pad(dists, ((0, 0), (0, w - w_eff)),
@@ -248,9 +158,7 @@ class TwoLevelCoarseQuantizer:
         return cells.astype(jnp.int32), dists
 
     def tree_flatten(self):
-        return ((self.centroids, self.group_centers, self.members,
-                 self.csr_offsets, self.csr_sizes, self.cent_scan,
-                 self.cent_scale, self.perm2d),
+        return ((self.centroids, self.group_centers, self.members),
                 (self.metric, self.n_probe_groups))
 
     @classmethod
@@ -288,7 +196,7 @@ def build_two_level(key: jax.Array, centroids: jax.Array, metric: Metric,
     # measured on Deep1B-shape (kc=2^18, g=512, w=32) recall@10 saturates
     # by gp=32 (=g/16) while gp=128 (=g/4) costs +35% latency; at small g
     # (kc~1e4: g~100) the candidate pool gp*(kc/g) is thinner and g/4 is
-    # needed (pinned by tests/test_topk.py's stage-2 recall bound)
+    # needed (pinned by tests/test_topk.py's two-level recall bound)
     gp = n_probe_groups or max(min(g, 8),
                                min(-(-g // 4), max(32, -(-g // 16))))
     return TwoLevelCoarseQuantizer.create(centroids, res.centers, members,

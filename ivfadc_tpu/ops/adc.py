@@ -6,12 +6,13 @@ Reference behavior being replaced (/root/reference/src/index.jl:204-258):
   `coarse_dist + sum_i table_i[code_i]` (:241-246) with a SortedMultiDict
   keeping the k best (:247-254).
 
-TPU-first redesign (SURVEY §7):
-  * tables are one dense (B, w, m, k) array built by a batched matmul
-    (MXU) — no dicts;
+Redesign for an accelerator (SURVEY §7):
+  * tables are one dense (B, w, m, k) array built by a batched matmul at
+    full float32 precision (the metric's pairwise, ops/metrics.py) — no
+    dicts;
   * the scan gathers a static-width window of each probed cell's slots from
     the flat CSR arrays, does m table lookups (`take_along_axis`), masks the
-    padding with +inf and finishes with one fused `lax.top_k` — no heap;
+    padding with +inf and finishes with one top-k (ops/topk.py) — no heap;
   * batch queries are the leading vectorized axis, not an outer loop
     (inverting the reference's serial batch loop, src/index.jl:261-273).
 
@@ -29,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from ivfadc_tpu.ops.metrics import Metric
+from ivfadc_tpu.ops.topk import topk_lastdim
 
 
 def build_adc_tables(metric: Metric, residuals: jax.Array,
@@ -81,9 +83,8 @@ def scan_postings(tables: jax.Array, base: jax.Array, cells: jax.Array,
     scores = jnp.where(valid, acc, jnp.inf).reshape(B, w * window)
 
     k_eff = min(k, w * window)
-    neg, which = jax.lax.top_k(-scores, k_eff)
+    out_dists, which = topk_lastdim(scores, k_eff)
     out_ids = jnp.take_along_axis(cand_ids.reshape(B, -1), which, axis=1)
-    out_dists = -neg
     out_ids = jnp.where(jnp.isfinite(out_dists), out_ids, -1)
     if k_eff < k:
         pad = k - k_eff

@@ -1,24 +1,23 @@
-"""Gathered dense scan for tiny-cell regimes (huge kc).
+"""Dense scan over the resident decoded-residual cache ("dense" scan mode).
 
-At kc ~ 2^18 (the Deep1B coarse shape) cells hold only a handful of
-postings, but the Pallas scan kernels move one full DMA chunk (>= 128 rows)
-per probed cell — >90% of the streamed bytes are padding, and the scan goes
-latency-bound on many small DMAs. When every probed cell fits a small
-static window, it is faster to GATHER exactly the probed rows with one XLA
-row-gather and score them with one batched MXU contraction:
+Each probed cell's postings are gathered as decoded rows and scored by one
+batched contraction against the probe's score vector:
 
-    rows   = decoded[start_p + j]            (P, win, d)   one gather
-    scores = rows . v_p + coef * ||rows||^2 + base_p       one dot_general
+    rows   = decoded[start_p + j],  j < win        (w, win, d) per query
+    scores = rows . v_p + coef * ||rows||^2 + base_p
 
-Same score formula as ops/pallas_scan.py (bf16 multiplies, f32 accumulate),
-so results match the scan engines to bf16 rounding. Cells larger than the
-window are handled by the caller (models/index.py `_dense_finish`): their
-probes are zeroed here and scanned by the regular kernel, and the two
-candidate lists merge exactly.
+For the squared-euclidean family v = -2 * r (r the rotated query residual)
+and base = ||r||^2 (+ the coarse distance in "reference" score mode), which
+is exactly ||r - r_hat||^2 = the LUT engine's score up to the cache's
+bf16/int8 rounding; for inner product v = -q, coef = 0.
+
+`win` covers the largest cell, so every probed posting is scored: the engine
+is exact for any k. Queries are processed in chunks (`lax.map` with a batch
+size derived from a byte budget) so the gathered (chunk, w, win, d) block
+stays bounded whatever the batch size; each chunk ends in its own top-k.
 
 Reference counterpart: the per-cell posting loop at
-/root/reference/src/index.jl:241-246 — this engine is its "probed postings
-as one dense batch" TPU form.
+/root/reference/src/index.jl:241-246, here as one dense batch per chunk.
 """
 
 from __future__ import annotations
@@ -27,77 +26,83 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+
+from ivfadc_tpu.ops.topk import topk_lastdim
+
+# bytes of gathered bf16 rows one query chunk may materialize
+_CHUNK_BYTES = 1 << 28
 
 
-@functools.partial(jax.jit, static_argnames=("win", "norm_coef"))
-def gathered_scan(starts, sizes, v, base, decoded, scale=None, ids=None, *,
-                  win: int, norm_coef: float = 1.0):
-    """Score up to `win` postings of each probed cell.
+def query_chunk(w: int, win: int, d: int, budget: int = _CHUNK_BYTES) -> int:
+    """Queries per chunk: the largest power of two whose gathered
+    (chunk, w, win, d) bf16 block fits `budget` (at least 1)."""
+    per_query = max(1, w * win * d * 2)
+    c = 1
+    while 2 * c * per_query <= budget:
+        c *= 2
+    return c
 
-    starts/sizes (B, w) i32 — slot ranges of the probed cells (a size of 0
-                              skips the probe; callers zero sizes > win)
+
+@functools.partial(jax.jit, static_argnames=("k", "win", "norm_coef",
+                                             "chunk"))
+def gathered_scan(starts, sizes, v, base, decoded, scale, ids, *, k: int,
+                  win: int, norm_coef: float = 1.0, chunk: int = 0):
+    """Top-k over every posting of each query's probed cells.
+
+    starts/sizes (B, w) i32 — slot ranges of the probed cells (size 0 skips)
     v            (B, w, d)  — score vectors (e.g. -2 * rotated residual)
-    base         (B, w) f32 — per-probe additive constants
-    decoded      (cap_pad, d) bf16 or int8 — resident decoded residuals
-    scale        (d,) f32   — int8 dequantization scales (int8 cache only)
-    ids          (cap_pad,) i32 — external ids per slot
+    base         (B, w) f32 — per-probe additive constants (inf kills a probe)
+    decoded      (cap, d) bf16 or int8 — resident decoded residuals
+    scale        (d,) f32 or None — int8 dequantization scales
+    ids          (cap,) i32 — external ids per slot (-1 in empty slots)
+    win          static     — rows read per probe; must cover every size
+    chunk        static     — queries per chunk (0: derived from the budget)
 
-    Returns (dists (B, w, win) f32, ids (B, w, win) i32) with +inf / -1 in
-    lanes past each cell's size.
+    Returns (ids (B, k) i32 with -1 padding, dists (B, k) f32 ascending with
+    +inf padding).
     """
-    if v.shape[-1] != decoded.shape[-1]:    # decoded is lane-padded
-        v = jnp.pad(v, ((0, 0), (0, 0), (0, decoded.shape[-1] - v.shape[-1])))
     B, w, d = v.shape
-    P = B * w
-    j = jnp.arange(win, dtype=jnp.int32)[None, :]               # (1, win)
-    sz = sizes.reshape(P, 1)
-    valid = j < sz                                              # (P, win)
-    idx = starts.reshape(P, 1) + j
-    idx = jnp.where(valid, idx, 0)
-    idx = jnp.minimum(idx, decoded.shape[0] - 1)
-    rows = decoded[idx]                                         # (P, win, d)
-    rows = rows.astype(jnp.bfloat16)
-    if scale is not None:
-        rows = rows * scale[None, None, :].astype(jnp.bfloat16)
-    vb = v.reshape(P, d).astype(jnp.bfloat16)
-    # batched (win, d) x (d,) matvec per probe — one MXU contraction
-    scores = jax.lax.dot_general(
-        rows, vb, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)                     # (P, win)
-    if norm_coef != 0.0:
-        norms = jnp.sum(rows * rows, axis=-1, dtype=jnp.float32)
-        scores = scores + norm_coef * norms
-    scores = scores + base.reshape(P, 1)
-    scores = jnp.where(valid, scores, jnp.inf)
-    out_ids = jnp.where(valid, ids[idx], -1) if ids is not None \
-        else jnp.where(valid, idx, -1)
-    return (scores.reshape(B, w, win),
-            out_ids.astype(jnp.int32).reshape(B, w, win))
+    k_eff = min(k, w * win)
+    lanes = jnp.arange(win, dtype=jnp.int32)
+    cap = decoded.shape[0]
+    bc = min(chunk or query_chunk(w, win, d), B)
+    nch = -(-B // bc)
 
+    def one_chunk(args):
+        st, sz, vq, bq = args                  # (bc,w), (bc,w), (bc,w,d), (bc,w)
+        valid = lanes < sz[..., None]                        # (bc, w, win)
+        idx = jnp.minimum(jnp.where(valid, st[..., None] + lanes, 0),
+                          cap - 1)
+        rows = decoded[idx].astype(jnp.bfloat16)             # (bc, w, win, d)
+        if scale is not None:
+            rows = rows * scale.astype(jnp.bfloat16)
+        # bf16 operands, f32 accumulation: the cache is bf16/int8 already,
+        # so a wider product would not make the scores any more exact
+        scores = jnp.einsum("bpwd,bpd->bpw", rows, vq.astype(jnp.bfloat16),
+                            precision=jax.lax.Precision.DEFAULT,
+                            preferred_element_type=jnp.float32)
+        if norm_coef != 0.0:
+            rf = rows.astype(jnp.float32)
+            scores = scores + norm_coef * jnp.sum(rf * rf, axis=-1)
+        scores = jnp.where(valid, scores + bq[..., None], jnp.inf)
+        dist, which = topk_lastdim(scores.reshape(bc, w * win), k_eff)
+        pos = jnp.take_along_axis(idx.reshape(bc, w * win), which, axis=1)
+        out = jnp.where(jnp.isfinite(dist), ids[pos], -1)
+        return out.astype(jnp.int32), dist
 
-def plan_gather(caps, limit: int, max_cap=None):
-    """Shared gather-engine plan policy: (window rows, covers_all).
+    def chunked(a, fill):
+        a = jnp.pad(a, ((0, nch * bc - B),) + ((0, 0),) * (a.ndim - 1),
+                    constant_values=fill)
+        return a.reshape((nch, bc) + a.shape[1:])
 
-    caps: positive cell capacities (zeros allowed; ignored) — must be a
-    PROCESS-INVARIANT array under multi-process runtimes (the window is a
-    jit static: divergent values would compile different SPMD programs).
-    max_cap: overrides the max used for the covers_all decision (e.g. the
-    true per-shard max when `caps` is the global layout).
-
-    covers_all=True is correctness-critical: it promises the window bounds
-    every cell CAPACITY (sizes never exceed caps), so the scan kernel can
-    be skipped entirely. The hybrid window is routing-only — oversized
-    cells fall back to the scan kernel at runtime.
-    """
-    caps = np.asarray(caps)
-    caps = caps[caps > 0]
-    if not limit or caps.size == 0:
-        return 0, False
-    up8 = lambda x: ((max(int(x), 1) + 7) // 8) * 8
-    mc = int(max_cap) if max_cap is not None else int(caps.max())
-    win_max = up8(mc)
-    if win_max <= limit:
-        return win_max, True
-    win95 = up8(np.percentile(caps, 95))
-    return (win95, False) if win95 <= limit else (0, False)
+    out_ids, out_d = jax.lax.map(
+        one_chunk, (chunked(starts, 0), chunked(sizes, 0), chunked(v, 0),
+                    chunked(base, jnp.inf)))
+    out_ids = out_ids.reshape(nch * bc, k_eff)[:B]
+    out_d = out_d.reshape(nch * bc, k_eff)[:B]
+    if k_eff < k:
+        out_ids = jnp.pad(out_ids, ((0, 0), (0, k - k_eff)),
+                          constant_values=-1)
+        out_d = jnp.pad(out_d, ((0, 0), (0, k - k_eff)),
+                        constant_values=jnp.inf)
+    return out_ids, out_d

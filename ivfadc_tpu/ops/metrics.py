@@ -16,14 +16,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import jax
 import jax.numpy as jnp
+
+# Every pairwise matmul runs at full float32 precision. Without it the GPU
+# runs float32 products in TF32 (~3 decimal digits), and these distances feed
+# results that are contracted as exact: the brute-force coarse probe, k-means
+# and PQ assignment, and the ADC tables.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass(frozen=True)
 class Metric:
     name: str
     # pairwise(X:(n,d), Y:(c,d)) -> (n,c) distances. Hot path: implemented as
-    # matmul (MXU) wherever possible.
+    # a matmul wherever possible.
     pairwise: Callable
     # finalize(d) applied to accumulated distances before returning to user.
     finalize: Callable
@@ -41,28 +48,31 @@ class Metric:
 
 
 def _sqeuclidean_pairwise(x, y):
-    # ||x - y||^2 = ||x||^2 + ||y||^2 - 2 x.y  — one matmul, MXU-bound.
+    # ||x - y||^2 = ||x||^2 + ||y||^2 - 2 x.y  — one matmul.
     xn = jnp.sum(x * x, axis=-1, keepdims=True)            # (n, 1)
     yn = jnp.sum(y * y, axis=-1)                           # (c,)
-    cross = jnp.dot(x, y.T, preferred_element_type=jnp.float32)
+    cross = jnp.dot(x, y.T, precision=_HIGHEST,
+                    preferred_element_type=jnp.float32)
     d = xn + yn[None, :] - 2.0 * cross
     return jnp.maximum(d, 0.0)
 
 
 def _cityblock_pairwise(x, y):
-    # O(n*c*d) elementwise — VPU-bound; fine for codebook-sized y.
+    # O(n*c*d) elementwise — fine for codebook-sized y.
     return jnp.sum(jnp.abs(x[:, None, :] - y[None, :, :]), axis=-1)
 
 
 def _inner_product_pairwise(x, y):
     # Negated inner product so that "smaller is closer" holds uniformly.
-    return -jnp.dot(x, y.T, preferred_element_type=jnp.float32)
+    return -jnp.dot(x, y.T, precision=_HIGHEST,
+                    preferred_element_type=jnp.float32)
 
 
 def _cosine_pairwise(x, y):
     xn = x / jnp.maximum(jnp.linalg.norm(x, axis=-1, keepdims=True), 1e-30)
     yn = y / jnp.maximum(jnp.linalg.norm(y, axis=-1, keepdims=True), 1e-30)
-    return 1.0 - jnp.dot(xn, yn.T, preferred_element_type=jnp.float32)
+    return 1.0 - jnp.dot(xn, yn.T, precision=_HIGHEST,
+                         preferred_element_type=jnp.float32)
 
 
 _identity = lambda d: d

@@ -1,4 +1,4 @@
-"""Product quantization (PQ) and optimized PQ (OPQ) for TPU.
+"""Product quantization (PQ) and optimized PQ (OPQ).
 
 Replaces QuantizedArrays.jl as used by the reference:
   * `build_quantizer(residuals; k, m, method, distance, maxiter)`
@@ -12,11 +12,12 @@ Replaces QuantizedArrays.jl as used by the reference:
   * `rowrange(d, m, i)` contiguous subspace slices -> a plain (n, m, dsub)
     reshape (we require m | d; the reference allows ragged subspaces).
 
-TPU-first design: the m per-subspace k-means trainings are one `vmap` over the
-leading subspace axis (identical shapes -> one compiled program, subspaces run
-as one batched matmul pipeline). Encoding is a batched distance matmul +
+Design: the m per-subspace k-means trainings are one `vmap` over the leading
+subspace axis (identical shapes -> one compiled program, subspaces run as
+one batched matmul pipeline). Encoding is a batched distance matmul +
 argmin. OPQ learns the d x d rotation by alternating encode / orthogonal
-Procrustes (SVD), per Ge et al. 2013.
+Procrustes (SVD), per Ge et al. 2013. Rotations run at full float32
+precision (`_HIGHEST`): codes and ADC tables are contracted as exact.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import numpy as np
 from ivfadc_tpu.config import code_dtype_for_k
 from ivfadc_tpu.ops.metrics import Metric, SQEUCLIDEAN
 from ivfadc_tpu.ops import kmeans as kmeans_ops
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class ProductQuantizer(NamedTuple):
@@ -93,12 +96,12 @@ def _train_codebooks_seq(key, residuals, m, k, maxiter, metric, block):
 
     The vmapped `_train_codebooks` needs a materialized (m, n, dsub)
     transpose copy plus a padded-blocks copy of it — ~2x the residual bytes
-    of EXTRA resident HBM, which OOMs a 1M x 960 GIST-scale build on a
-    16 GB chip. Slicing one (n, dsub) subspace at a time keeps the peak at
-    residuals + one subspace; the jitted k-means program is compiled once
+    of EXTRA resident device memory at GIST scale (1M x 960). Slicing one
+    (n, dsub) subspace at a time keeps the peak at residuals + one
+    subspace; the jitted k-means program is compiled once
     (identical shapes) and dispatched m times, so only the vmap's batched-
-    dispatch win is lost (negligible: each subspace k-means is MXU-bound at
-    these n). Same per-subspace keys as the vmap path."""
+    dispatch win is lost (negligible: each subspace k-means is
+    matmul-bound at these n). Same per-subspace keys as the vmap path."""
     n, d = residuals.shape
     dsub = d // m
     keys = jax.random.split(key, m)
@@ -173,7 +176,7 @@ def train_quantizer(key: jax.Array, residuals: jax.Array, *, m: int, k: int,
     rot = eye
     cb = None
     for it in range(max(1, opq_iters)):
-        xr = residuals @ rot
+        xr = jnp.matmul(residuals, rot, precision=_HIGHEST)
         kit = jax.random.fold_in(key, it)
         cb = _train_codebooks_seq(kit, xr, m, k, maxiter, metric, block) \
             if seq else _train_codebooks(kit, _to_subspaces(xr, m), k,
@@ -183,7 +186,8 @@ def train_quantizer(key: jax.Array, residuals: jax.Array, *, m: int, k: int,
         # The Procrustes SVD is a tiny (d, d) problem solved once per outer
         # iteration — do it on host in float64 so the rotation stays orthogonal
         # to machine precision (JAX's f32 SVD drifts ~1e-3).
-        cov = np.asarray(residuals.T @ recon, dtype=np.float64)
+        cov = np.asarray(jnp.matmul(residuals.T, recon, precision=_HIGHEST),
+                         dtype=np.float64)
         u, _, vt = np.linalg.svd(cov, full_matrices=False)
         rot = jnp.asarray(u @ vt, jnp.float32)
     return ProductQuantizer(cb, rot, "opq")
@@ -204,7 +208,7 @@ def _reconstruct_rotated(codebooks, codes):
 @functools.partial(jax.jit, static_argnames=("metric", "apply_rotation"))
 def _encode_impl(codebooks, rotation, x, metric, apply_rotation):
     if apply_rotation:
-        x = x @ rotation
+        x = jnp.matmul(x, rotation, precision=_HIGHEST)
     m = codebooks.shape[0]
     return _encode_subspaces(codebooks, _to_subspaces(x, m), metric)
 
@@ -240,17 +244,19 @@ def encode(pq: ProductQuantizer, residuals: jax.Array,
 def _decode_impl(codebooks, rotation, codes, apply_rotation):
     recon = _reconstruct_rotated(codebooks, codes)
     if apply_rotation:
-        recon = recon @ rotation.T   # inverse of orthogonal rotation
+        # inverse of the orthogonal rotation
+        recon = jnp.matmul(recon, rotation.T, precision=_HIGHEST)
     return recon
 
 
 @jax.jit
 def _decode_rotated_onehot(codebooks, codes):
-    """Chunk decode via one-hot MATMUL (TPU-friendly: no element gathers).
+    """Chunk decode via one-hot matmul (no element gathers).
 
     codes (n, m) uint -> (n, d) bf16 reconstruction in the rotated space.
-    Used to materialize the resident decoded-residual cache for the Pallas
-    dense-scan kernel.
+    Used to materialize the resident decoded-residual cache for the dense
+    scan. The one-hot operand is exact in bf16 and the output is bf16, so
+    the default precision loses nothing.
     """
     m, k, dsub = codebooks.shape
     onehot = (codes.astype(jnp.int32)[:, :, None] ==
@@ -258,6 +264,7 @@ def _decode_rotated_onehot(codebooks, codes):
               ).astype(jnp.bfloat16)                      # (n, m, k)
     out = jnp.einsum("nmk,mks->nms", onehot,
                      codebooks.astype(jnp.bfloat16),
+                     precision=jax.lax.Precision.DEFAULT,
                      preferred_element_type=jnp.bfloat16)
     return out.reshape(codes.shape[0], m * dsub)
 
@@ -288,7 +295,7 @@ def decode_rotated_int8(pq: ProductQuantizer, codes, scale,
                         block: int = 65536):
     """(n, m) codes -> (n, d) int8 cache rows: round(codeword / scale).
 
-    int8 halves the dense-scan DMA traffic vs bf16; with the codebook-derived
+    int8 halves the dense-scan gather traffic vs bf16; with the codebook-derived
     per-column `scale` (see cache_scale) the quantization error is <= scale/2
     per element — the same order as bf16's 8-bit mantissa rounding.
 

@@ -5,7 +5,7 @@ The reference has no distributed support (SURVEY §2.4;
 /root/reference/TODO.md:2 marks parallelism as future work) — this package
 is the from-scratch scale-out story: inverted lists sharded over a "shard"
 mesh axis, queries data-parallel over a "data" axis, XLA collectives over
-ICI/DCN.
+NCCL.
 """
 
 from ivfadc_tpu.parallel.bootstrap import (initialize_cluster, process_info,

@@ -2,8 +2,8 @@
 
 The reference is strictly single-process (SURVEY §2.4; the only parallelism
 note is the TODO at /root/reference/TODO.md:2). This module is the new
-framework's process-group entry point for one-process-per-host runs on a TPU
-pod slice: call `initialize_cluster()` first thing in each process, then
+framework's process-group entry point for one-process-per-host runs on a
+multi-host GPU cluster: call `initialize_cluster()` first thing in each process, then
 `make_mesh()` sees the GLOBAL device set and `ShardedIVFADCIndex.build` /
 `save_sharded_index` / `load_sharded_index` operate per-process on
 addressable shards only (no cross-host traffic for persistence).
@@ -11,7 +11,7 @@ addressable shards only (no cross-host traffic for persistence).
 Resolution order for cluster parameters: explicit arguments, then
 `IVFADC_COORDINATOR` / `IVFADC_NUM_PROCESSES` / `IVFADC_PROCESS_ID` /
 `IVFADC_LOCAL_DEVICE_IDS` environment variables, then JAX's own cluster
-auto-detection (TPU pod metadata, SLURM, Open MPI). With none of those
+auto-detection (SLURM, Open MPI). With none of those
 present this is a no-op returning False — single-process behavior is
 unchanged, so library users never have to think about it.
 """
@@ -27,8 +27,6 @@ _INITIALIZED = False
 # means `jax.distributed.initialize()` can resolve the cluster without args
 _AUTO_DETECT_VARS = (
     "JAX_COORDINATOR_ADDRESS",      # manual JAX cluster spec
-    "CLOUD_TPU_TASK_ID",            # GCE TPU pod metadata
-    "TPU_WORKER_ID",
     "SLURM_NTASKS",                 # SLURM
     "OMPI_COMM_WORLD_SIZE",         # Open MPI
 )

@@ -3,14 +3,14 @@
 The reference's build is a single-threaded loop over all points
 (/root/reference/src/index.jl:103-194). At Deep1B scale the flat posting
 arrays (and especially the decoded-residual scan cache) cannot exist on one
-host or chip, so the build itself must be distributed (SURVEY §5 "Distributed
+host or card, so the build itself must be distributed (SURVEY §5 "Distributed
 communication backend", §7 M4). Pipeline — every stage device-side, points
 sharded over ALL mesh devices, only O(kc + S^2) metadata on host:
 
   A. data-parallel k-means over the full (data, shard) mesh
      (`distributed_kmeans` with axes=both — psum'd Lloyd sufficient stats);
   B. PQ training on a replicated residual subsample (same auto-cap as the
-     single-chip build), then one blocked shard_map pass computing each
+     single-card build), then one blocked shard_map pass computing each
      device's assignments + PQ codes + the global per-cell histogram;
   C. host computes the per-shard CSR layout from the (kc,) histogram —
      cells dealt round-robin (cell c -> shard c % S), identical to
@@ -78,8 +78,9 @@ def _assign_encode_stats(centers, codebooks, rotation, x, mask, *, mesh,
             resid = xb - centers_l[a]
             if dq != d:                  # ragged-subspace zero padding
                 resid = jnp.pad(resid, ((0, 0), (0, dq - d)))
-            if apply_rot:
-                resid = resid @ rot_l
+            if apply_rot:     # full precision: codes are contracted exact
+                resid = jnp.matmul(resid, rot_l,
+                                   precision=jax.lax.Precision.HIGHEST)
             codes = _encode_subspaces(cb_l, _to_subspaces(resid, m), qmetric)
             return a, codes
 
@@ -207,7 +208,7 @@ def _redistribute_to_shards(a, codes, mask, offsets_per, *gids, mesh,
 @functools.partial(jax.jit, static_argnames=("int8", "block"))
 def _decode_shard_caches(codebooks, codes, scale, *, int8: bool,
                          block: int = 65536):
-    """Per-shard decoded-residual caches for the Pallas dense scan.
+    """Per-shard decoded-residual caches for the dense scan.
 
     codes (S, cap_pad, m) sharded over the shard axis; the one-hot decode is
     elementwise per shard so XLA keeps the output sharded — no collectives,
@@ -287,7 +288,7 @@ def build_distributed_parts(data, mesh, config):
         metric=cmetric, mask=maskd, n_valid=n, axes=BOTH_AXES)
 
     # B1. PQ training on a replicated residual subsample (auto-capped like
-    # the single-chip build — codebooks from 2^20 residuals are statistically
+    # the single-card build — codebooks from 2^20 residuals are statistically
     # indistinguishable; encoding still covers every point)
     qs = config.quantization_sample or min(n, _PQ_TRAIN_AUTOCAP)
     qs = min(qs, n)
@@ -316,7 +317,7 @@ def build_distributed_parts(data, mesh, config):
     send_cap = max(8, _round_up(send_cap, 8))
 
     # C. per-shard CSR layout from the global histogram (host, O(kc))
-    align = 128 if config.kc <= 16384 else 8
+    align = 8
     cells_idx = np.arange(config.kc)
     owners = cells_idx % S
     sizes_per = np.zeros((S, config.kc), np.int64)
@@ -330,8 +331,7 @@ def build_distributed_parts(data, mesh, config):
     np.cumsum(caps_per[:, :-1], axis=1, out=offsets_per[:, 1:])
     cap_shard = _round_up(
         int((offsets_per[:, -1] + caps_per[:, -1]).max()), _LANE)
-    guard = config.scan_chunk + _LANE
-    cap_pad = _round_up(cap_shard + guard, _LANE)
+    cap_pad = cap_shard
 
     # D. all_to_all redistribution -> per-shard CSR blocks (device-side)
     offs_rep = jax.device_put(offsets_per.astype(np.int32),

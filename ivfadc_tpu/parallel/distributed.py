@@ -4,14 +4,14 @@ The reference's build is single-threaded (SURVEY §2.4). Here the hot build
 steps are expressed as shard_map programs over the ("data", "shard") mesh:
 
   * k-means assignment+accumulation runs data-parallel: each device scans its
-    local slice of points, computes per-cluster one-hot partial sums on the
-    MXU, and a `psum` over the data axis produces the exact global Lloyd
+    local slice of points, computes per-cluster one-hot partial sums as a
+    matmul, and a `psum` over the data axis produces the exact global Lloyd
     update — the classic sufficient-statistics reduction.
   * PQ encoding is embarrassingly data-parallel (pure map over points).
 
-`distributed_kmeans` iterates the step under jit; `train_step` bundles one
+`distributed_kmeans` runs the Lloyd iterations as one program; `train_step` bundles one
 k-means iteration + an encode pass — the "full training step" used by the
-multi-chip dry run.
+multi-device dry run.
 """
 
 from __future__ import annotations
@@ -49,7 +49,9 @@ def _local_stats(x_local, mask_local, centers, metric: Metric,
         dist = metric.pairwise(xl, centers)
         a = jnp.argmin(dist, axis=1).astype(jnp.int32)
         onehot = jax.nn.one_hot(a, k, dtype=jnp.float32) * ml[:, None]
-        sums = jnp.dot(onehot.T, xl, preferred_element_type=jnp.float32)
+        # default precision: a running-mean update, see ops/kmeans.py
+        sums = jnp.dot(onehot.T, xl, precision=jax.lax.Precision.DEFAULT,
+                       preferred_element_type=jnp.float32)
         return a, sums, jnp.sum(onehot, axis=0)
 
     a_b, sums_b, counts_b = jax.lax.map(per_block, (xb, mb))
@@ -57,13 +59,22 @@ def _local_stats(x_local, mask_local, centers, metric: Metric,
             jnp.sum(counts_b, axis=0))
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "metric", "axes"))
-def distributed_kmeans_step(centers, x, mask, *, mesh, metric: Metric,
-                            axes=(DATA_AXIS,)):
-    """One exact Lloyd iteration with points sharded over `axes`.
+@functools.partial(jax.jit,
+                   static_argnames=("mesh", "metric", "axes", "maxiter"))
+def distributed_lloyd(centers, x, mask, *, mesh, metric: Metric,
+                      axes=(DATA_AXIS,), maxiter: int = 1):
+    """`maxiter` exact Lloyd iterations with points sharded over `axes`, as
+    ONE program.
 
     centers (k, d) replicated; x (n, d) and mask (n,) sharded on `axes`.
-    Returns (new_centers replicated, assignments sharded).
+    Returns (new_centers replicated, assignments sharded) — the assignments
+    of the last iteration, made against the centers it started from.
+
+    The iterations run in one `fori_loop` rather than as `maxiter`
+    back-to-back dispatches: several in-flight programs that each hold a
+    cross-device all-reduce can starve one another of the host threads
+    the CPU backend runs devices on, and the all-reduce rendezvous then
+    aborts the process.
     """
 
     def step(centers_l, x_l, mask_l):
@@ -76,8 +87,14 @@ def distributed_kmeans_step(centers, x, mask, *, mesh, metric: Metric,
         new_centers = jnp.where(counts[:, None] > 0.5, new_centers, centers_l)
         return new_centers, a
 
+    def loop(centers_l, x_l, mask_l):
+        a0 = jnp.zeros(x_l.shape[0], jnp.int32)
+        return jax.lax.fori_loop(
+            0, maxiter, lambda _, c: step(c[0], x_l, mask_l),
+            (centers_l, a0))
+
     fn = shard_map(
-        step, mesh=mesh,
+        loop, mesh=mesh,
         in_specs=(P(), P(axes), P(axes)),
         out_specs=(P(), P(axes)),
         check_vma=False)
@@ -128,16 +145,15 @@ def distributed_kmeans(key, x, k: int, mesh, *,
         centers = kmeans_plus_plus(key, sample, k, metric)
     centers = jax.device_put(np.asarray(centers), NamedSharding(mesh, P()))
 
-    assignments = None
-    for _ in range(maxiter):
-        centers, assignments = distributed_kmeans_step(
-            centers, xd, maskd, mesh=mesh, metric=metric, axes=axes)
+    centers, assignments = distributed_lloyd(
+        centers, xd, maskd, mesh=mesh, metric=metric, axes=axes,
+        maxiter=maxiter)
     return centers, assignments[:n]
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "metric", "m"))
 def train_step(centers, codebooks, x, mask, *, mesh, metric: Metric, m: int):
-    """One full distributed training step (used by the multi-chip dry run):
+    """One full distributed training step (used by the multi-device dry run):
 
       1. data-parallel Lloyd iteration over the coarse centers (dp + psum);
       2. residual computation against the updated centers;

@@ -1,10 +1,11 @@
 """Device-mesh helpers.
 
 The reference has zero distributed support (SURVEY §2.4). This layer is the
-new framework's scale-out story (BASELINE north_star): inverted lists are
-sharded over a `"shard"` mesh axis, query batches over a `"data"` axis;
-codebooks/centroids are replicated (they're small); XLA collectives ride
-ICI/DCN transparently.
+scale-out story: inverted lists are sharded over a `"shard"` mesh axis,
+query batches over a `"data"` axis; codebooks/centroids are replicated
+(they're small). On GPUs XLA runs the collectives over NCCL; the cards of
+one host are joined all to all, so the mesh shape follows the algorithm
+alone.
 """
 
 from __future__ import annotations

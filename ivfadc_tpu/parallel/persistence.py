@@ -291,9 +291,9 @@ def consolidate_sharded_to_file(path: str, out_path: str,
                                 chunk_rows: int = 1 << 20) -> None:
     """Out-of-core consolidation: fold a `save_sharded_index` directory into
     a single-file index (`utils.persistence` format) WITHOUT ever holding
-    the full payload in memory (round-4 verdict item 5-weak/next-7: the
-    in-memory `consolidate_sharded_index` needs the whole payload's RAM,
-    which a Deep1B-scale directory does not fit).
+    the full payload in memory (the in-memory `consolidate_sharded_index`
+    needs the whole payload's RAM, which a Deep1B-scale directory does not
+    fit).
 
     The global CSR layout is known up front from the replicated histogram,
     so the flat code/id arrays are materialized as on-disk memmaps and each
@@ -433,8 +433,7 @@ def _reshard_parts(path: str, meta, config, glayout, v1_layout, mesh):
     if any_loaded is None:
         raise FileNotFoundError(f"no shard files found in {path}")
     m = codes_b[any_loaded].shape[1]
-    guard = config.scan_chunk + 128
-    cap_pad = _round_up(cap_shard + guard, 128)
+    cap_pad = cap_shard
     wide = bool(meta.get("wide_ids", False))
     new_codes = np.zeros((S_new, cap_pad, m), codes_b[any_loaded].dtype)
     new_ids = np.full((S_new, cap_pad), -1, np.int32)

@@ -1,9 +1,9 @@
 """Online-serving frontend: request coalescing over the batched search path.
 
 The reference is a single-threaded library whose batch search is a serial
-query loop (/root/reference/src/index.jl:261-273). On TPU the economics
-invert: one padded (B, k) dispatch amortizes the fixed dispatch/RPC cost
-over B queries, so a serving layer wants to COALESCE concurrent small
+query loop (/root/reference/src/index.jl:261-273). On an accelerator the
+economics invert: one padded (B, k) dispatch amortizes the fixed dispatch
+cost over B queries, so a serving layer wants to COALESCE concurrent small
 requests into shared device batches instead of dispatching each alone.
 
 `BatchingSearcher` is that layer: callers `submit()` single queries (or

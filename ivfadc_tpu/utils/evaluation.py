@@ -1,8 +1,9 @@
 """Recall evaluation: exact brute-force ground truth + recall@R.
 
-The reference never measures recall (SURVEY §4 "not tested"); BASELINE.md
-makes recall@10 at fixed code size the primary parity metric, so this is
-first-class here. Ground truth runs on device as chunked matmuls.
+The reference never measures recall (SURVEY §4 "not tested"); recall@10
+at fixed code size is the primary parity metric, so this is first-class
+here. Ground truth runs on device as chunked matmuls at full float32
+precision: it is the exact answer every recall is measured against.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ def _topk_block(queries, base_block, running_d, running_i, base_offset, k):
     qn = jnp.sum(queries * queries, axis=1, keepdims=True)
     bn = jnp.sum(base_block * base_block, axis=1)
     d = qn + bn[None, :] - 2.0 * jnp.dot(queries, base_block.T,
+                                         precision=jax.lax.Precision.HIGHEST,
                                          preferred_element_type=jnp.float32)
     bd, idx = topk_lastdim(d, min(k, base_block.shape[0]))
     cand_d = jnp.concatenate([running_d, bd], axis=1)
@@ -32,7 +34,7 @@ def _topk_block(queries, base_block, running_d, running_i, base_offset, k):
 def brute_force_topk(base, queries, k: int, block: int = 8192):
     """Exact squared-euclidean top-k neighbors. Returns (dists, ids) np
     arrays. `base` may be a host np array or a device-resident jax array
-    (blocks then slice on-device — no H2D)."""
+    (blocks then slice on-device — no host-to-device copy)."""
     queries = jnp.asarray(queries, jnp.float32)
     nq = queries.shape[0]
     run_d = jnp.full((nq, k), jnp.inf, jnp.float32)

@@ -40,7 +40,7 @@ class BuildTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """jax.profiler trace context for TPU timeline capture."""
+    """jax.profiler trace context for device timeline capture."""
     import jax
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,10 +1,10 @@
-"""TEXMEX reader hardening (VERDICT r1 item 9).
+"""TEXMEX reader hardening.
 
 The readers in ivfadc_tpu/utils/datasets.py parse the fvecs/bvecs/ivecs
 byte layouts SIFT1M/GIST1M ship in (per-row [int32 d][d x elem]). No real
 dataset exists in this environment, so these tests generate format-exact
 files and assert byte-level round-trips — a layout bug would otherwise
-surface only when real data first appears (BASELINE.md primary metric
+surface only when real data first appears (the headline metric
 names SIFT1M).
 """
 

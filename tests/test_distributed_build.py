@@ -36,10 +36,9 @@ def _single_host_from_same_components(sidx, data):
         base.coarse_metric.pairwise(q, base.coarse.centroids), axis=1)
     resid = q - base.coarse.centroids[cells]
     codes = pq_ops.encode(base.quantizer, resid, metric=base.quant_metric)
-    align = 128 if base.config.kc <= 16384 else 8
     store = PostingStore.build(np.asarray(cells), np.asarray(codes),
                                base.config.kc,
-                               slack=base.config.cell_slack, align=align)
+                               slack=base.config.cell_slack)
     return IVFADCIndex(base.config, base.coarse, base.quantizer, store,
                        np.dtype(np.float32), data.shape[1])
 
@@ -111,7 +110,7 @@ def test_distributed_build_recall_parity_with_single_host_build():
     assert r_s >= r_1 - 0.05, (r_s, r_1)
 
 
-@pytest.mark.heavy                # ~50 s: interpret-mode kernels at kc=4096
+@pytest.mark.heavy                # large-kc distributed build
 def test_distributed_build_large_kc_zero_extent_cells():
     """kc >= 4096: non-local cells take zero rows per shard (no kc*align*S
     padding blow-up), and search still answers correctly."""
@@ -119,8 +118,8 @@ def test_distributed_build_large_kc_zero_extent_cells():
     mesh = make_mesh(n_shards=8)
     sidx = ShardedIVFADCIndex.build(data, mesh, kc=4096, k=16, m=2, seed=0)
     sizes = np.asarray(sidx.arrays["sizes"])
-    # per-shard extent is bounded by live cells (align rows each) + guard —
-    # NOT kc * align * S (every shard padding every cell, the old behavior)
+    # per-shard extent is bounded by live cells (align rows each) — NOT
+    # kc * align * S (every shard padding every cell)
     live_per_shard = int((sizes > 0).sum(axis=1).max())
     width = np.asarray(sidx.arrays["ids"]).shape[1]
     assert width <= live_per_shard * 128 + 4096, (width, live_per_shard)

@@ -2,7 +2,7 @@
 
 benchmarks/oracle.py reimplements the reference's exact knn_search
 (/root/reference/src/index.jl:204-258) in NumPy. Running it against the SAME
-trained index state isolates search semantics: the TPU path must return the
+trained index state isolates search semantics: the JAX path must return the
 same neighbors (and the same "coarse_dist + sum(table)" scores) up to f32
 rounding and tie order.
 """

@@ -1,4 +1,4 @@
-"""Dense Pallas scan vs the LUT reference path (interpret mode on CPU)."""
+"""Dense scan (ops/gather_scan.py) vs the LUT reference path."""
 
 import numpy as np
 import pytest
@@ -126,131 +126,17 @@ def test_dense_scan_int8_dynamic_patch_matches_rebuild():
     np.testing.assert_allclose(d_a, d_b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.heavy                # ~17 s: multi-segment interpret-mode scan
-def test_dense_scan_segmented_matches_single_launch(monkeypatch):
-    # huge-kc probe counts split dense_scan into multiple launches to fit
-    # the SMEM scalar-prefetch budget; shrink the segment size so the
-    # multi-segment path runs at test scale and matches one launch exactly
-    import jax.numpy as jnp
-    from ivfadc_tpu.ops import pallas_scan as ps
-
-    rng = np.random.RandomState(7)
-    kc, rows_per, d = 24, 16, 128
-    caps = np.full(kc, rows_per)
-    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
-    sizes = np.full(kc, rows_per - 4, np.int32)
-    total = int(caps.sum()) + 1024 + 128
-    decoded = jnp.asarray(rng.randn(total, d).astype(np.float32),
-                          jnp.bfloat16)
-    B, w = 16, 4
-    cells = rng.randint(0, kc, (B, w)).astype(np.int32)
-    v = jnp.asarray(rng.randn(B, w, d).astype(np.float32))
-    base = jnp.asarray(rng.rand(B, w).astype(np.float32))
-    args = dict(k_out=5, chunk=128, norm_coef=1.0, merge="fold", nf=128,
-                interpret=True)
-    st = jnp.asarray(offsets[cells])
-    sz = jnp.asarray(sizes[cells])
-    d1, p1 = ps.dense_scan(st, sz, v, base, decoded, **args)
-    d1, p1 = np.asarray(d1), np.asarray(p1)
-    # dense_scan is jitted: clear the trace cache so the patched segment
-    # size reaches a fresh trace (a plain second call would be a cache hit)
-    monkeypatch.setattr(ps, "SEG_PROBES", 16)   # force 4 segments (P=64)
-    import jax
-    jax.clear_caches()
-    d2, p2 = ps.dense_scan(st, sz, v, base, decoded, **args)
-    np.testing.assert_array_equal(d1, np.asarray(d2))
-    np.testing.assert_array_equal(p1, np.asarray(p2))
-
-
-@pytest.mark.parametrize("nf,chunk,pb,k",
-                         [(128, 128, 8, 10), (256, 256, 16, 10),
-                          (128, 128, 8, 64)])   # 2k == 128 boundary
-def test_grouped_extract_matches_buffered_topk(nf, chunk, pb, k):
-    # extract_k mode must return exactly the per-probe top-k of the fold
-    # candidate buffers (dist bits + external ids packed in one 128-lane
-    # row), for cells with fewer candidates than k included
-    import jax.numpy as jnp
-    from ivfadc_tpu.ops import pallas_scan as ps
-
-    rng = np.random.RandomState(3)
-    kc, d = 8, 128
-    caps = np.full(kc, 256)                       # 128-row aligned cells
-    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
-    sizes = rng.randint(3, 250, kc).astype(np.int32)   # incl. tiny cells
-    total = int(caps.sum())
-    decoded = jnp.asarray(rng.randn(total, d).astype(np.float32),
-                          jnp.bfloat16)
-    ids2d = jnp.asarray(
-        rng.permutation(total).astype(np.int32).reshape(-1, 128))
-    B, w = 16, 4
-    cells = rng.randint(0, kc, (B, w)).astype(np.int32)
-    v = jnp.asarray(rng.randn(B, w, d).astype(np.float32))
-    base = jnp.asarray(rng.rand(B, w).astype(np.float32))
-    args = dict(kc=kc, k_out=k, chunk=chunk, norm_coef=1.0, pb=pb,
-                merge="fold", nf=nf, interpret=True)
-    bd, bp = ps.grouped_dense_scan(jnp.asarray(cells), jnp.asarray(offsets),
-                                   jnp.asarray(sizes), v, base, decoded,
-                                   None, ids2d, **args)
-    ed, ep = ps.grouped_dense_scan(jnp.asarray(cells), jnp.asarray(offsets),
-                                   jnp.asarray(sizes), v, base, decoded,
-                                   None, ids2d, extract_k=k, **args)
-    bd, bp = np.asarray(bd), np.asarray(bp)       # (B, w, nf) buffers
-    ed, ep = np.asarray(ed), np.asarray(ep)       # (B, w, k) extracted
-    assert ed.shape == (B, w, k) and ep.shape == (B, w, k)
-    for bi in range(B):
-        for wi in range(w):
-            order = np.argsort(bd[bi, wi], kind="stable")[:k]
-            np.testing.assert_array_equal(ed[bi, wi], bd[bi, wi][order])
-            finite = np.isfinite(ed[bi, wi])
-            np.testing.assert_array_equal(ep[bi, wi][finite],
-                                          bp[bi, wi][order][finite])
-            # empty-lane extraction: +inf distance pairs carry id -1
-            np.testing.assert_array_equal(ep[bi, wi][~finite],
-                                          np.full((~finite).sum(), -1))
-
-
-def test_dense_scan_buffered_default_matches_lut(monkeypatch):
-    """The SHIPPED default (extraction OFF: buffered fold epilogue +
-    full-candidate merge) end-to-end: the dense search must match the LUT
-    engine. The env knobs are re-read per dispatch as jit static args, so
-    the monkeypatch takes effect without a subprocess."""
-    monkeypatch.setenv("IVFADC_NO_EXTRACT", "1")
-    base, idx = _build(scan_mode="dense")
-    _, idx_lut = _build(scan_mode="lut")
-    q = base[np.random.RandomState(7).choice(len(base), 16, replace=False)]
-    _compare(idx, idx_lut, q, k=10, w=4)
-
-
-def test_dense_scan_extraction_optin_matches_lut(monkeypatch):
-    """The opt-in extraction engine (IVFADC_EXTRACT=1 — kept for other
-    shapes/runtimes after losing its round-3 hardware A/B) end-to-end:
-    since round 5 the suite runs the shipped defaults, so this test is the
-    extraction path's e2e coverage."""
-    monkeypatch.setenv("IVFADC_EXTRACT", "1")
-    monkeypatch.delenv("IVFADC_NO_EXTRACT", raising=False)
-    base, idx = _build(scan_mode="dense")
-    _, idx_lut = _build(scan_mode="lut")
-    q = base[np.random.RandomState(7).choice(len(base), 16, replace=False)]
-    _compare(idx, idx_lut, q, k=10, w=4)
-
-
 def test_gathered_engine_matches_lut():
-    # ungrouped regime (B*w << 4*kc is false here, so force via small batch)
-    # with tiny cells: the gathered engine must cover every cell and match
-    # the exact LUT scan
-    base, idx = _build(n=300, kc=64, m=4, scan_mode="dense", cell_align=8,
-                       scan_gather_win=64)
-    win, covers_all = idx._gather_plan()
-    assert covers_all and 0 < win <= idx.config.scan_gather_win
-    _, idx_lut = _build(n=300, kc=64, m=4, scan_mode="lut", cell_align=8)
-    q = base[:8]
-    assert q.shape[0] * 8 < 4 * 64          # ungrouped engine selection
-    _compare(idx, idx_lut, q, k=10, w=8)
+    # tiny cells (kc close to n/5): the gathered engine must cover every
+    # probed cell and match the exact LUT scan
+    base, idx = _build(n=300, kc=64, m=4, scan_mode="dense")
+    _, idx_lut = _build(n=300, kc=64, m=4, scan_mode="lut")
+    _compare(idx, idx_lut, base[:8], k=10, w=8)
 
 
 def test_gathered_hybrid_oversized_cells_match_lut():
-    # one heavily-populated cell above the gather window: its probes must
-    # flow through the scan kernel and merge exactly with gathered results
+    # one heavily-populated cell among tiny ones: the window covers the
+    # largest cell, so probes of both kinds score every posting
     rng = np.random.RandomState(5)
     d, kc = 16, 32
     centers = rng.randn(kc, d).astype(np.float32) * 6
@@ -259,20 +145,17 @@ def test_gathered_hybrid_oversized_cells_match_lut():
     big = centers[0] + 0.1 * rng.randn(400, d).astype(np.float32)
     base = np.concatenate([big, small])
     kw = dict(kc=kc, k=16, m=4, seed=0, coarse_maxiter=10,
-              quantization_maxiter=10, scan_gather_win=16, cell_align=8)
+              quantization_maxiter=10)
     idx = IVFADCIndex.build(base, scan_mode="dense", **kw)
-    win, covers_all = idx._gather_plan()
-    assert win and not covers_all, (win, covers_all)
-    assert int(idx.store.caps.max()) > win   # the big cell really oversizes
+    assert idx.store.window >= int(idx.store.sizes.max())
     idx_lut = IVFADCIndex.build(base, scan_mode="lut", **kw)
     q = np.concatenate([big[:4], small[:4]])  # probe both regimes
-    assert q.shape[0] * 4 < 4 * kc            # ungrouped engine selection
     _compare(idx, idx_lut, q, k=10, w=4)
 
 
 def test_gathered_plan_survives_in_place_cell_growth():
-    # _grow_cell mutates caps IN PLACE; the cached covers_all plan must be
-    # invalidated or the grown cell's postings silently vanish from search
+    # _grow_cell mutates caps IN PLACE; the scan window must follow, or the
+    # grown cell's postings past the old window silently vanish from search
     rng = np.random.RandomState(9)
     d, kc = 16, 32
     centers = rng.randn(kc, d).astype(np.float32) * 8
@@ -280,33 +163,26 @@ def test_gathered_plan_survives_in_place_cell_growth():
         [c + 0.05 * rng.randn(8, d).astype(np.float32) for c in centers])
     idx = IVFADCIndex.build(base, kc=kc, k=16, m=4, seed=0,
                             coarse_maxiter=10, quantization_maxiter=10,
-                            scan_mode="dense", cell_align=8,
-                            scan_gather_win=64, index_dtype="uint32")
-    win0, covers0 = idx._gather_plan()
-    assert covers0 and win0 > 0
-    idx.search_padded(base[:8], 5, w=2)          # populate the plan cache
-    # flood one cluster until its cell grows past the cached window
-    extra = centers[0] + 0.05 * rng.randn(4 * win0, d).astype(np.float32)
+                            scan_mode="dense", index_dtype="uint32")
+    win0 = idx.store.window
+    idx.search_padded(base[:8], 5, w=2)          # materialize the cache
+    # flood one cluster until its cell grows past the old window
+    extra = centers[0] + 0.05 * rng.randn(2 * win0, d).astype(np.float32)
     idx.push_batch(extra)
     assert int(idx.store.caps.max()) > win0      # growth actually happened
-    ids, dists = idx.search_padded(extra[:4], 5, w=2)
-    # the pushed points themselves must be findable (self-recall in the
-    # grown cell); with a stale covers_all plan the cell scans empty
-    expect = len(base) + np.arange(4)
+    ids, _ = idx.search_padded(extra[-4:], 5, w=2)
+    # the last pushed points sit past the old window in the grown cell
+    expect = len(base) + 2 * win0 - 4 + np.arange(4)
     assert (np.asarray(ids)[:, 0] == expect).all(), (ids[:, 0], expect)
 
 
 def test_gathered_engine_inner_product_matches_lut():
     # norm_coef=0 path of the gathered engine (score = v.x + base)
-    base, idx = _build(n=300, kc=64, m=4, scan_mode="dense", cell_align=8,
-                       scan_gather_win=64,
+    base, idx = _build(n=300, kc=64, m=4, scan_mode="dense",
                        quantization_metric="inner_product")
-    win, covers_all = idx._gather_plan()
-    assert covers_all and win > 0
-    _, idx_lut = _build(n=300, kc=64, m=4, scan_mode="lut", cell_align=8,
+    _, idx_lut = _build(n=300, kc=64, m=4, scan_mode="lut",
                         quantization_metric="inner_product")
     q = np.random.RandomState(2).randn(4, 32).astype(np.float32)
-    assert q.shape[0] * 16 < 4 * 64          # ungrouped engine selection
     ids_d, dd = idx.search_padded(q, 10, w=16)
     ids_l, dl = idx_lut.search_padded(q, 10, w=16)
     same = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
@@ -314,3 +190,85 @@ def test_gathered_engine_inner_product_matches_lut():
     assert same > 0.9, (ids_d, ids_l)
     agree = ids_d == ids_l
     np.testing.assert_allclose(dd[agree], dl[agree], rtol=2e-2, atol=5e-2)
+
+
+def _scan_inputs(B=12, w=3, cap=200, d=8, seed=0):
+    """Random gathered_scan inputs: B queries x w probes over a bf16 cache
+    of `cap` rows, cells of 0..40 rows."""
+    import jax.numpy as jnp
+    rng = np.random.RandomState(seed)
+    starts = rng.randint(0, cap - 40, (B, w)).astype(np.int32)
+    sizes = rng.randint(0, 41, (B, w)).astype(np.int32)
+    v = rng.randn(B, w, d).astype(np.float32)
+    base = rng.rand(B, w).astype(np.float32)
+    base[0, 0] = np.inf                      # a killed (padded) probe
+    dec = jnp.asarray(rng.randn(cap, d), jnp.bfloat16)
+    ids = np.arange(cap, dtype=np.int32) * 7
+    return starts, sizes, v, base, dec, ids
+
+
+def _numpy_scan(starts, sizes, v, base, dec, ids, k):
+    """Float64 reference of gathered_scan over the same bf16 values."""
+    dec = np.asarray(dec.astype(np.float32), np.float64)
+    vb = np.asarray(v, np.float64)
+    out_d, out_i = [], []
+    for b in range(starts.shape[0]):
+        cand = []
+        for p in range(starts.shape[1]):
+            for j in range(sizes[b, p]):
+                r = dec[starts[b, p] + j]
+                cand.append((r @ vb[b, p] + r @ r + base[b, p],
+                             ids[starts[b, p] + j]))
+        cand = sorted(c for c in cand if np.isfinite(c[0]))[:k]
+        out_d.append([c[0] for c in cand] + [np.inf] * (k - len(cand)))
+        out_i.append([c[1] for c in cand] + [-1] * (k - len(cand)))
+    return np.asarray(out_i), np.asarray(out_d)
+
+
+@pytest.mark.parametrize("chunk", [0, 1, 5, 12, 64])
+def test_gathered_scan_query_chunking(chunk):
+    """Query chunking (lax.map batch size, non-dividing sizes included)
+    must not change results, and the results match a float64 reference
+    up to the bf16 score-vector rounding."""
+    import jax.numpy as jnp
+    from ivfadc_tpu.ops.gather_scan import gathered_scan
+    starts, sizes, v, base, dec, ids = _scan_inputs()
+    args = (jnp.asarray(starts), jnp.asarray(sizes), jnp.asarray(v),
+            jnp.asarray(base), dec, None, jnp.asarray(ids))
+    got_i, got_d = gathered_scan(*args, k=10, win=40, chunk=chunk)
+    ref_i, ref_d = gathered_scan(*args, k=10, win=40, chunk=12)
+    np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i))
+    np.testing.assert_array_equal(np.asarray(got_d), np.asarray(ref_d))
+    np_i, np_d = _numpy_scan(starts, sizes, v, base, dec, ids, 10)
+    got_d = np.asarray(got_d)
+    fin = np.isfinite(np_d)
+    np.testing.assert_array_equal(np.isfinite(got_d), fin)
+    # bf16 score vectors: |v| ~ 3, |rows| ~ 3, 2^-8 relative rounding
+    np.testing.assert_allclose(got_d[fin], np_d[fin], rtol=0, atol=0.15)
+    np.testing.assert_array_equal(np.asarray(got_i)[~fin], -1)
+
+
+@pytest.mark.parametrize("w,win,d,budget,expect", [
+    (8, 4096, 128, 1 << 28, 32), (8, 128, 128, 1 << 28, 1024),
+    (1, 8, 8, 1, 1), (4, 1000, 96, 1 << 20, 1)])
+def test_query_chunk_budget(w, win, d, budget, expect):
+    """The per-chunk gathered block (chunk, w, win, d) bf16 stays within
+    the byte budget, as a power of two, and never drops below one query."""
+    from ivfadc_tpu.ops.gather_scan import query_chunk
+    c = query_chunk(w, win, d, budget)
+    assert c == expect
+    assert c == 1 or c * w * win * d * 2 <= budget
+
+
+def test_gathered_scan_pads_past_candidate_supply():
+    """k larger than w * win: outputs are padded with -1 / +inf."""
+    import jax.numpy as jnp
+    from ivfadc_tpu.ops.gather_scan import gathered_scan
+    starts, sizes, v, base, dec, ids = _scan_inputs(B=4, w=2)
+    got_i, got_d = gathered_scan(
+        jnp.asarray(starts[:, :2]), jnp.asarray(np.minimum(sizes, 3)),
+        jnp.asarray(v), jnp.asarray(base), dec, None, jnp.asarray(ids),
+        k=10, win=3)
+    got_i, got_d = np.asarray(got_i), np.asarray(got_d)
+    assert got_i.shape == (4, 10)
+    assert (got_i[:, 6:] == -1).all() and np.isinf(got_d[:, 6:]).all()

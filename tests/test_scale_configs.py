@@ -1,4 +1,4 @@
-"""Functional coverage of the BASELINE.md scale configs (shrunk to CPU size):
+"""Functional coverage of the benchmark scale configs (shrunk to CPU size):
 Deep1B-style huge-kc two-level coarse, GIST-style high dims, push_batch."""
 
 import numpy as np
@@ -35,7 +35,7 @@ def test_gist_shape_high_dim():
     ids, dists = idx.search_padded(q, 5, w=4)
     hits = np.mean([i in set(row.tolist()) for i, row in zip(range(8), ids)])
     assert hits > 0.7, hits
-    # high-dim works through the dense kernel path too (interpret on CPU)
+    # high-dim works through the dense scan too
     idx2 = IVFADCIndex.build(base, kc=32, k=64, m=16, seed=0,
                              coarse_maxiter=6, quantization_maxiter=6,
                              scan_mode="dense")
@@ -43,7 +43,7 @@ def test_gist_shape_high_dim():
     same = np.mean([len(set(a.tolist()) & set(b.tolist())) / 5
                     for a, b in zip(ids, ids2)])
     assert same > 0.9, (ids, ids2)
-    # the other BASELINE GIST code size, m=32 (dsub=30): finer codes must
+    # the other GIST code size, m=32 (dsub=30): finer codes must
     # not lose the self-neighbor and should beat/equal m=16 on recall
     idx32 = IVFADCIndex.build(base, kc=32, k=64, m=32, seed=0,
                               coarse_maxiter=6, quantization_maxiter=6)

@@ -42,9 +42,10 @@ def test_search_types(random_data, coarse_quantizer):
 
 
 def test_dense_large_k_exact():
-    """k > 128 must not be silently truncated by the dense engine's 128-lane
-    candidate buffer: the index routes such queries to the exact LUT scan
-    (reference keeps exact k-best for any k, src/index.jl:247-254)."""
+    """k > 128 must not be truncated: the dense engine scores every posting
+    of the probed cells (its window covers the largest cell), so it keeps
+    the exact k-best for any k like the reference (src/index.jl:247-254),
+    up to the decoded cache's int8 rounding."""
     rng = np.random.RandomState(3)
     # two tight clusters -> one probed cell holds ~1000 postings
     data = np.concatenate([
@@ -57,12 +58,16 @@ def test_dense_large_k_exact():
     ids_d, dists_d = dense.search_padded(q, 200, w=1)
     ids_l, dists_l = lut.search_padded(q, 200, w=1)
     assert ids_d.shape == (4, 200)
-    np.testing.assert_array_equal(ids_d, ids_l)
-    np.testing.assert_allclose(dists_d, dists_l, rtol=1e-5)
     # all 200 slots fill (the probed cell holds 1000 postings) and ranks
     # beyond 128 are real neighbors, not padding
     assert (ids_d >= 0).all()
     assert (np.diff(dists_d, axis=1) >= -1e-6).all()
+    overlap = np.mean([len(set(a) & set(b)) / 200
+                       for a, b in zip(ids_d, ids_l)])
+    assert overlap > 0.95, overlap
+    # int8 cache: each coordinate off by <= scale/2 (~1e-3 here), so the
+    # k-th distances differ by far less than the spread of the list
+    np.testing.assert_allclose(dists_d[:, -1], dists_l[:, -1], atol=2e-3)
 
 
 @pytest.mark.parametrize("coarse_quantizer", ["naive", "hnsw"])
@@ -190,56 +195,3 @@ def test_two_level_padded_probes_no_duplicates():
         for row in ids:
             live = row[row >= 0]
             assert len(live) == len(set(live.tolist())), row
-
-
-def test_autotune_applies_best_and_preserves_results():
-    """autotune times candidate (pb, chunk) configs on the live index,
-    applies the fastest, and the tuned index returns identical results
-    (fold winners depend on nf, not pb/chunk)."""
-    rng = np.random.RandomState(3)
-    data = rng.rand(2048, 32).astype(np.float32)
-    idx = IVFADCIndex.build(data, kc=16, m=4, k=16, seed=0,
-                            scan_mode="dense")
-    q = data[:32]
-    before_i, before_d = idx.search_padded(q, 5, w=4)
-    out = idx.autotune(q, k=5, w=4, pbs=(8, 16), chunks=(128,), reps=2)
-    assert out["applied"] and out["best"] is not None
-    assert {"pb", "chunk", "merge", "seconds"} <= set(out["best"])
-    assert idx.config.scan_pb == out["best"]["pb"]
-    assert idx.config.scan_chunk == out["best"]["chunk"]
-    after_i, after_d = idx.search_padded(q, 5, w=4)
-    np.testing.assert_array_equal(before_i, after_i)
-    np.testing.assert_allclose(before_d, after_d, rtol=1e-6)
-    # apply=False leaves the config untouched
-    cfg = idx.config
-    out2 = idx.autotune(q, k=5, w=4, pbs=(8,), chunks=(128,), reps=1,
-                        apply=False)
-    assert not out2["applied"] and idx.config is cfg
-
-
-def test_autotune_rejects_bad_queries_and_lut_mode():
-    rng = np.random.RandomState(4)
-    data = rng.rand(256, 16).astype(np.float32)
-    idx = IVFADCIndex.build(data, kc=8, m=4, k=16, scan_mode="lut")
-    out = idx.autotune(data[:8], k=3, w=2)
-    assert not out["applied"] and out["best"] is None
-    dense = IVFADCIndex.build(data, kc=8, m=4, k=16, scan_mode="dense")
-    with pytest.raises(AssertionError):
-        dense.autotune(data[0], k=3, w=2)       # 1-D queries
-
-
-def test_merge_topk_approx_engine_matches_on_cpu(monkeypatch):
-    """IVFADC_MERGE_TOPK=approx routes the final merge through
-    lax.approx_min_k (TPU ApproxTopK HLO). On CPU that op lowers to an
-    exact sort, so results must match the default fused-Pallas merge
-    exactly — this pins the plumbing + payload-gather correctness; the
-    recall/time trade on hardware is measured by benchmarks/ab_merge.py."""
-    rng = np.random.RandomState(11)
-    data = rng.rand(2000, 16).astype(np.float32)
-    idx = build_random_index(data, kc=16, k=16, m=2)
-    q = data[:64] + 0.01 * rng.randn(64, 16).astype(np.float32)
-    ids_a, d_a = idx.search_padded(q, 5, w=4)
-    monkeypatch.setenv("IVFADC_MERGE_TOPK", "approx")
-    ids_b, d_b = idx.search_padded(q, 5, w=4)
-    assert np.array_equal(ids_a, ids_b)
-    np.testing.assert_allclose(d_a, d_b, rtol=1e-6)

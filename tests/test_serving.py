@@ -164,7 +164,7 @@ def test_searches_do_not_stall_during_slow_mutation(served_index):
 def test_search_inside_mutate_does_not_deadlock(served_index):
     """A search submitted from within mutate(fn) resolves against the
     snapshot epoch instead of deadlocking (the old writer-preference RW
-    lock hazard flagged by the round-4 advisor)."""
+    lock hazard)."""
     data, _ = served_index
     idx = build_random_index(data)
     seen = {}

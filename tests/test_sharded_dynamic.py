@@ -37,10 +37,9 @@ def _host_twin(sidx, data):
         base.coarse_metric.pairwise(q, base.coarse.centroids), axis=1)
     resid = q - base.coarse.centroids[cells]
     codes = pq_ops.encode(base.quantizer, resid, metric=base.quant_metric)
-    align = 128 if base.config.kc <= 16384 else 8
     store = PostingStore.build(np.asarray(cells), np.asarray(codes),
                                base.config.kc,
-                               slack=base.config.cell_slack, align=align)
+                               slack=base.config.cell_slack)
     return IVFADCIndex(base.config, base.coarse, base.quantizer, store,
                        np.dtype(np.float32), data.shape[1])
 
@@ -237,7 +236,7 @@ def test_empty_push_batch_is_noop(dist_view):
 
 
 def test_native_mutations_are_single_sync():
-    """Fused mutation contract (round-4 verdict item 4): one device->host
+    """Fused mutation contract: one device->host
     sync per native push_batch (the cells fetch) and per delete (the
     locate fetch; zero in wide mode), with the whole row-data epilogue a
     single donated program — no row ever crosses to host."""

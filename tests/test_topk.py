@@ -1,5 +1,5 @@
-"""Pallas top-k kernel: exactness vs lax.top_k, plus fold-merge search
-parity (fold is exact for cells <= 128 postings — the collision-free case)."""
+"""Smallest-k selection (ops/topk.py) and the coarse quantizers built on it:
+exactness vs lax.top_k and vs float64 NumPy references."""
 
 import numpy as np
 import jax
@@ -47,60 +47,15 @@ def test_topk_with_inf_padding():
     assert np.isinf(v[:, 5:]).all()
 
 
-def test_fold_merge_matches_exact_small_cells():
-    """Cells < 128 postings -> fold merge is provably exact; full search
-    results must match the exact merge bit-for-bit (same index, same
-    queries)."""
-    from ivfadc_tpu import IVFADCIndex
-    rng = np.random.RandomState(0)
-    centers = rng.randn(16, 32).astype(np.float32) * 4
-    data = np.concatenate(
-        [c + rng.randn(64, 32).astype(np.float32) for c in centers])
-    out = {}
-    for merge in ("exact", "fold"):
-        idx = IVFADCIndex.build(data, kc=16, k=16, m=4, seed=0,
-                                coarse_maxiter=5, quantization_maxiter=5,
-                                scan_mode="dense", scan_merge=merge)
-        out[merge] = idx.search_padded(data[:32], 10, w=4)
-    np.testing.assert_array_equal(out["exact"][0], out["fold"][0])
-    np.testing.assert_allclose(out["exact"][1], out["fold"][1], rtol=1e-6)
-
-
-@pytest.mark.heavy                # ~15 s: large-cell fold-buffer stress
-def test_fold_merge_recall_large_cells():
-    """One big cell (>> 128 postings): fold may drop colliding candidates but
-    top-1 is always exact and recall@10 must stay near the exact merge."""
-    from ivfadc_tpu import IVFADCIndex
-    from ivfadc_tpu.utils.evaluation import brute_force_topk, recall_at_r
-    rng = np.random.RandomState(3)
-    data = rng.randn(4096, 16).astype(np.float32)
-    queries = data[:128] + 0.01 * rng.randn(128, 16).astype(np.float32)
-    _, gt = brute_force_topk(data, queries, 10)
-    rec = {}
-    for merge in ("exact", "fold"):
-        idx = IVFADCIndex.build(data, kc=2, k=256, m=8, seed=0,
-                                coarse_maxiter=4, quantization_maxiter=8,
-                                scan_mode="dense", scan_merge=merge)
-        ids, dists = idx.search_padded(queries, 10, w=2)
-        rec[merge] = recall_at_r(ids, gt, 10)
-        # top-1 per query is collision-proof in fold mode
-        ids1, _ = idx.search_padded(queries, 1, w=2)
-        assert (ids1 >= 0).all()
-    assert rec["fold"] >= rec["exact"] - 0.02, rec
-
-
 @pytest.mark.heavy                # ~9 s: kc=2^14 two-level coarse stress
 def test_two_level_scan_stage2_large_kc():
-    """kc above the gather cutoff routes coarse stage 2 through the grouped
-    Pallas scan; probed cells must be (approximately) the true nearest —
-    measured as top-w recall vs the exact brute-force coarse scan."""
-    from ivfadc_tpu.models.coarse import (NaiveCoarseQuantizer,
-                                          TwoLevelCoarseQuantizer,
-                                          build_two_level)
+    """Large kc: the chunked exact stage 2 must return (approximately) the
+    true nearest cells — measured as top-w recall vs the exact brute-force
+    coarse scan — with exact float32 distances."""
+    from ivfadc_tpu.models.coarse import NaiveCoarseQuantizer, build_two_level
     from ivfadc_tpu.ops.metrics import SQEUCLIDEAN
     rng = np.random.RandomState(0)
     kc, d = 8192, 32
-    assert kc > TwoLevelCoarseQuantizer._GATHER_MAX
     cents = jnp.asarray(rng.randn(kc, d).astype(np.float32))
     tl = build_two_level(jax.random.PRNGKey(0), cents, SQEUCLIDEAN,
                          maxiter=8)
@@ -114,8 +69,142 @@ def test_two_level_scan_stage2_large_kc():
     # uniform random centroids are the worst case for group pruning (no
     # cluster structure to exploit); real coarse centroids do much better
     assert hit >= 0.8, hit
-    # distances must match the true squared distances (bf16-level tolerance)
+    # distances are the true squared distances: float32 rounding of the
+    # |q|^2 + |c|^2 - 2 q.c decomposition at |q|^2 ~ d
     true_d = np.asarray(
         jnp.sum((q[:, None, :] - cents[cells_tl]) ** 2, axis=-1))
     np.testing.assert_allclose(np.asarray(dists_tl), true_d,
-                               rtol=2e-2, atol=1e-2)
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,k", [((16, 300), 7), ((5, 64), 64)])
+def test_topk_payload_matches_gather(shape, k):
+    """The payload variant returns each winner's payload entry."""
+    from ivfadc_tpu.ops.topk import topk_lastdim_payload
+    rng = np.random.RandomState(2)
+    x = rng.randn(*shape).astype(np.float32)
+    p = rng.randint(0, 1 << 30, shape).astype(np.int32)
+    vals, pay = topk_lastdim_payload(jnp.asarray(x), jnp.asarray(p), k)
+    order = np.argsort(x, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(np.asarray(vals),
+                                  np.take_along_axis(x, order, axis=1))
+    np.testing.assert_array_equal(np.asarray(pay),
+                                  np.take_along_axis(p, order, axis=1))
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coarse_search_exact_on_near_ties(metric, seed):
+    """The brute-force coarse probe is contracted as exact: on centroids
+    whose distances to a query differ only in the 5th significant digit,
+    it must rank them like a float64 NumPy scan. A TF32 matmul (10-bit
+    mantissa) would scramble these rankings."""
+    from ivfadc_tpu.models.coarse import NaiveCoarseQuantizer
+    from ivfadc_tpu.ops.metrics import get_metric
+    rng = np.random.RandomState(seed)
+    d, kc, B, w = 64, 256, 32, 8
+    q = rng.randn(B, d).astype(np.float32)
+    base = rng.randn(d).astype(np.float32)
+    # centroids = one shared point + tiny distinct perturbations: every
+    # query sees kc near-tied distances
+    cents = (base[None, :]
+             + 1e-3 * rng.randn(kc, d).astype(np.float32)).astype(np.float32)
+    cq = NaiveCoarseQuantizer(jnp.asarray(cents), get_metric(metric))
+    cells, dists = cq.search(jnp.asarray(q), w)
+    q64, c64 = q.astype(np.float64), cents.astype(np.float64)
+    if metric == "sqeuclidean":
+        ref = ((q64[:, None, :] - c64[None, :, :]) ** 2).sum(-1)
+    else:
+        ref = -(q64 @ c64.T)
+    got = np.asarray(cells)
+    # float32 can still swap two centroids whose float64 distances differ
+    # by less than its own rounding (a few ulps of the distance magnitude);
+    # so the chosen cells must be a top-w set to within 32 ulps: their
+    # float64 distances, sorted, equal the true top-w distances. TF32 errors
+    # (~5e-4 relative) break this bound many times over.
+    tol = 32 * np.finfo(np.float32).eps * np.abs(ref).max()
+    chosen = np.sort(np.take_along_axis(ref, got, axis=1), axis=1)
+    np.testing.assert_allclose(chosen, np.sort(ref, axis=1)[:, :w],
+                               rtol=0, atol=tol)
+    np.testing.assert_allclose(np.asarray(dists),
+                               np.take_along_axis(ref, got, axis=1),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kc,gp", [(512, 4), (2048, 8)])
+def test_two_level_stage2_exact_within_probed_groups(kc, gp):
+    """Stage 2 returns the exact top-w of the members of the probed groups,
+    as a float64 NumPy reference computes it (at any kc — there is no
+    approximate large-kc engine)."""
+    from ivfadc_tpu.models.coarse import build_two_level
+    from ivfadc_tpu.ops.metrics import SQEUCLIDEAN
+    rng = np.random.RandomState(kc)
+    d, w, B = 16, 8, 24
+    cents = rng.randn(kc, d).astype(np.float32)
+    tl = build_two_level(jax.random.PRNGKey(1), jnp.asarray(cents),
+                         SQEUCLIDEAN, n_probe_groups=gp, maxiter=4)
+    q = rng.randn(B, d).astype(np.float32)
+    cells, dists = tl.search(jnp.asarray(q), w)
+    gc = np.asarray(tl.group_centers, np.float64)
+    mem = np.asarray(tl.members)
+    q64, c64 = q.astype(np.float64), cents.astype(np.float64)
+    gd = ((q64[:, None, :] - gc[None]) ** 2).sum(-1)
+    for b in range(B):
+        groups = np.argsort(gd[b], kind="stable")[:gp]
+        cand = mem[groups].reshape(-1)
+        cand = cand[cand >= 0]
+        cd = ((q64[b] - c64[cand]) ** 2).sum(-1)
+        want = np.sort(cd)[:w]
+        got_d = ((q64[b] - c64[np.asarray(cells)[b]]) ** 2).sum(-1)
+        np.testing.assert_allclose(np.sort(got_d), want, rtol=1e-6)
+        assert set(np.asarray(cells)[b].tolist()) <= set(cand.tolist())
+
+
+def _interpreted(x, k):
+    """ops/topk.py's CUDA path, with the Pallas kernel run by Pallas's
+    interpreter (the CPU has no Triton)."""
+    import functools
+    from ivfadc_tpu.ops import topk as tk
+    return tk.chunked_smallest(
+        x, k, call=functools.partial(tk.extract_call, interpret=True))
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((8, 1024), 8),        # coarse-probe shape, one slice per row
+    ((4, 5000), 10),       # ragged width: +inf padding, 3 slices, 2 stages
+    ((3, 40), 1),          # narrow row, k = 1
+    ((2, 4096), 32),       # the largest k the kernel serves
+])
+def test_triton_topk_interpreted_matches_lax(shape, k):
+    """The GPU smallest-k (slice-wise min-extract, then a second stage)
+    returns lax.top_k's values and indices exactly."""
+    rng = np.random.RandomState(sum(shape) + k)
+    x = rng.randn(*shape).astype(np.float32)
+    vals, idx = _interpreted(jnp.asarray(x), k)
+    order = np.argsort(x, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(np.asarray(vals),
+                                  np.take_along_axis(x, order, axis=1))
+    np.testing.assert_array_equal(np.asarray(idx), order)
+
+
+def test_triton_topk_interpreted_ties_and_inf_tail():
+    """Ties resolve to the lowest index (like lax.top_k); rows with fewer
+    than k finite entries put their finite ones first, +inf after."""
+    x = np.full((2, 3000), np.inf, np.float32)
+    x[0, [5, 2500, 7]] = [1.0, 1.0, 0.5]
+    x[1, :] = 2.0
+    vals, idx = _interpreted(jnp.asarray(x), 4)
+    vals, idx = np.asarray(vals), np.asarray(idx)
+    np.testing.assert_array_equal(vals[0, :3], [0.5, 1.0, 1.0])
+    np.testing.assert_array_equal(idx[0, :3], [7, 5, 2500])
+    assert np.isinf(vals[0, 3])
+    np.testing.assert_array_equal(idx[1], [0, 1, 2, 3])
+
+
+def test_topk_lastdim_large_k_takes_xla_path():
+    """k above the kernel's limit goes to lax.top_k on every platform."""
+    from ivfadc_tpu.ops.topk import _MAX_K
+    x = jnp.asarray(np.random.RandomState(5).randn(3, 500), jnp.float32)
+    vals, idx = topk_lastdim(x, _MAX_K + 8)
+    np.testing.assert_array_equal(
+        np.asarray(vals), np.sort(np.asarray(x), axis=1)[:, :_MAX_K + 8])
